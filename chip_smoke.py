@@ -4,15 +4,32 @@
     python3 chip_smoke.py
 
 1. Prints the card (name and power limit from nvidia-smi), the torch and
-   CUDA versions and the device count; exits non-zero without a CUDA device.
-2. Builds the four CUDA kernels from flipviscosity3d_torch/csrc (nvcc,
-   sm_90a) and prints the build time and ptxas' register / spill report.
+   CUDA versions and the device count; exits non-zero without a CUDA device
+   or without the flipviscosity3d_torch package beside this script.
+2. Builds the six CUDA kernels from flipviscosity3d_torch/csrc (one nvcc per
+   source, all started together, sm_90a) and prints the build time and
+   ptxas' register / spill report.
 3. Holds each kernel against its plain PyTorch version on the card, at the
-   bench scene's shapes (128^3 grid, ~4.1M particles), and times both.
-4. Drives the main path through FluidSimulation(device="cuda") on the bench
-   scene: one warm frame and 5 frames of dt = 0.01, printing each frame's
-   diagnostics, substeps/s, peak memory and the kernels' launch counts
-   (reset just before the main path).
+   bench scene's shapes (128^3 grid, ~4.1M particles; K5 and K6 on a
+   fully covered falling order and on a partly covered random one), and
+   times the kernel, the plain version and, where one exists, the one
+   PyTorch call that computes the same function; states each kernel's
+   bound.
+4. Drives three main paths through FluidSimulation() on the card, each
+   with the launch counts set to 0 just before it and read just after:
+   - "bench": the bench scene under the JAX package's default engine
+     (pass A "sort", pass B "plan", pushback "gather"), one warm frame and
+     5 frames of dt = 0.01;
+   - "stale": the same pool lifted by 0.43 in y, so that it falls, under
+     pass A "stale", pass B "plan" and pushback "kernel", one warm frame
+     and 5 frames of dt = 0.04 (several substeps per frame, so that stale
+     substeps occur);
+   - "bench_sort": the bench run with pass B "sort" (a re-sort by
+     midpoint key instead of the midpoint plan);
+   printing each frame's diagnostics (substeps, stale substeps, overflow,
+   iterations), substeps/s, peak memory and the launch counts. A path fails
+   if one of its kernels was never launched or a residual missed its
+   tolerance.
 5. Prints the card line, one JSON line of kernel records, and as its last
    line {"ok": true, "device": {...}} when every check held; otherwise
    prints what failed and exits 1.
@@ -29,6 +46,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RES = 128
 FRAMES = 5
+RECORD_KEYS = ("name", "route", "source", "replaces", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def _card() -> str:
@@ -49,14 +68,18 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs a CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, ROOT)
+    try:
+        from flipviscosity3d_torch import _build, smoke
+    except ImportError as e:
+        print(f"chip_smoke: the flipviscosity3d_torch package is missing "
+              f"beside this script ({e})", file=sys.stderr)
+        return 1
     card = _card()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()} "
           f"({torch.cuda.get_device_name(0)})", flush=True)
-
-    sys.path.insert(0, ROOT)
-    from flipviscosity3d_torch import _build, smoke
 
     t0 = time.perf_counter()
     info = _build.build()
@@ -73,26 +96,34 @@ def main() -> int:
     del sim
     torch.cuda.empty_cache()
 
-    result = smoke.run_main_path("cuda", RES, FRAMES)
-    failures += result["failures"]
-    print(json.dumps({
-        "particles": result["particles"],
-        "timed_frames": FRAMES,
-        "substeps": result["substeps"],
-        "substeps_per_s": result["substeps_per_s"],
-        "peak_bytes": result["peak_bytes"],
-        "launches": result["launches"],
-        "card": card,
-    }), flush=True)
+    launches = {r["name"]: 0 for r in records}
+    for name, dt, lift, overrides in smoke.MAIN_PATHS:
+        result = smoke.run_main_path("cuda", RES, FRAMES, dt=dt, lift=lift,
+                                     **overrides)
+        failures += [f"path {name}: {f}" for f in result["failures"]]
+        for k in launches:
+            launches[k] += result["launches"][k]
+        print(json.dumps({
+            "path": name,
+            "particles": result["particles"],
+            "timed_frames": FRAMES,
+            "substeps": result["substeps"],
+            "stale_substeps": result["stale_substeps"],
+            "bucket_overflow": result["bucket_overflow"],
+            "substeps_per_s": result["substeps_per_s"],
+            "peak_bytes": result["peak_bytes"],
+            "launches": result["launches"],
+            "path_kernels": result["path_kernels"],
+            "card": card,
+        }), flush=True)
+        torch.cuda.empty_cache()
 
     if failures:
         for f in failures:
             print(f"FAILED: {f}")
         return 1
-    kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
-                                  "max_abs_err", "ms", "plain_ms")}
-               | {"launches": result["launches"][r["name"]]}
-               for r in records]
+    kernels = [{k: r[k] for k in RECORD_KEYS}
+               | {"launches": launches[r["name"]]} for r in records]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,10 +26,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "flip3d_kernels"
 # -fmad=false keeps every multiply and add separately rounded, as the plain
 # PyTorch versions round them, so the kernels and their references differ
 # only in summation order.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 
@@ -58,26 +58,45 @@ def library_path() -> Path:
     return BUILD_DIR / f"libflip3d_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list) -> str:
+    """Run the commands all at once; return their joined output, or raise
+    naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {p.returncode}):\n{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 @functools.cache
 def build() -> dict:
-    """Compile the library if it is not built yet. Returns
-    {"path", "seconds", "log"}; `log` holds nvcc's -Xptxas -v report
-    (registers and spills per kernel) when this call compiled."""
+    """Compile the library if it is not built yet: one nvcc per source, all
+    started together, then one link. Returns {"path", "seconds", "log"};
+    `log` holds nvcc's -Xptxas -v report (registers and spills per kernel)
+    when this call compiled."""
     out = library_path()
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "log": "(cached)"}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in SRC_DIR.glob("*.cu")]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    try:
+        log = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                    for p, o in zip(sources, objs)])
+        log += _run([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
     return {"path": str(out), "seconds": seconds, "log": log}
 
 

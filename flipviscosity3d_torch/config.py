@@ -2,19 +2,30 @@
 
 Every physics and solver field of flipviscosity3d_tpu.config.SimConfig is
 kept here with the same name and default, so that one scene description
-drives both packages. The TPU-only knobs of that class are not fields here:
-the particle engine choice, the Pallas pass-A / pass-B / pushback variants,
-their visit-plan budgets, the bf16 split terms, the gather column layout and
-dtype, and the V-cycle backend. The port implements exactly one variant of
-each, which in the JAX package's terms is
+drives both packages. The port runs the JAX "pallas" particle engine, and
+its three visit-plan switches are fields here with the JAX names, defaults
+and value sets:
 
-- pass A = "sort": particles are re-sorted by tile-major home-cell key every
-  substep;
-- pass B = "sort": every RK2 midpoint is sampled directly, with no visit plan,
-  no ballistic fallback and no pass-B overflow;
-- pushback = "gather": one row gather of the node SDF per particle;
-- the V(1,1) V-cycle runs through the mg_down / mg_up kernels on the card and
-  through their plain PyTorch versions on the CPU.
+- pallas_pass_a: "sort" re-sorts the particles by tile-major home-cell key
+  every substep; "stale" keeps the previous substep's order, re-sorts only
+  every pallas_resort_every substeps (and on the first substep of every
+  frame), and computes the in-cell ranks inside the scatter kernel;
+  particles beyond their chunk's pallas_passa_budget distinct tiles skip
+  the substep's grid transfers (counted in bucket_overflow);
+- pallas_pass_b: "plan" (the default, the bench's) samples the RK2
+  midpoints in pass-A order through a midpoint visit plan and advects
+  uncovered midpoints ballistically (counted); "sort" re-sorts by midpoint
+  key and samples every midpoint;
+- pallas_pushback: "gather" reads the node SDF corners of every particle;
+  "kernel" reads them through a visit plan, and uncovered particles skip
+  the pushback for one substep (counted).
+
+The knobs that only choose a TPU layout or precision are not fields here,
+since they change nothing the port computes: the particle engine choice
+(the port has one), pallas_split_gather, pallas_gather_dtype,
+pallas_split_terms and mg_backend. The V(1,1) V-cycle runs through the
+mg_down / mg_up kernels on the card and through their plain PyTorch
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -27,6 +38,9 @@ _ENUMS = {
     "mg_operator_dtype": ("bf16", "f32"),
     "viscosity_preconditioner": ("jacobi", "multigrid"),
     "pressure_preconditioner": ("jacobi", "multigrid"),
+    "pallas_pass_a": ("sort", "stale"),
+    "pallas_pass_b": ("plan", "sort"),
+    "pallas_pushback": ("gather", "kernel"),
 }
 
 
@@ -73,6 +87,19 @@ class SimConfig:
     # as the JAX package's CPU path does.
     mg_operator_dtype: str = "bf16"
 
+    # Visit-plan variants of the particle engine (module docstring). A
+    # budget is the number of distinct tiles a chunk of 512 particles may
+    # touch; a factor times the chunk count caps the plan's visits once
+    # budget * chunks exceeds 8192.
+    pallas_pass_a: str = "sort"
+    pallas_resort_every: int = 8
+    pallas_passa_budget: int = 8
+    pallas_passa_factor: float = 3.0
+    pallas_pass_b: str = "plan"
+    pallas_midpoint_budget: int = 8
+    pallas_midpoint_factor: float = 3.0
+    pallas_pushback: str = "gather"
+
     max_substeps: int = 64
 
     viscosity_preconditioner: str = "multigrid"
@@ -91,6 +118,10 @@ class SimConfig:
                 raise ValueError(
                     f"{name} must be one of {allowed}, got "
                     f"{getattr(self, name)!r}")
+        for name in ("pallas_resort_every", "pallas_passa_budget",
+                     "pallas_midpoint_budget"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
         if self.extrapolation_layers is None:
             object.__setattr__(
                 self, "extrapolation_layers",

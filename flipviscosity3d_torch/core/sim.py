@@ -2,8 +2,10 @@
 
 Mirrors flipviscosity3d_tpu/core/sim.py (reference fluidsimulation.h:53-63):
 initialize / add_boundary / add_liquid / set_viscosity / set_gravity /
-advance, plus particle positions. Every tensor lives on the
-`device` given at construction.
+advance, plus particle positions. Every tensor lives on the `device` given
+at construction, which is the card ("cuda") unless the caller asks for the
+CPU (`FluidSimulation("cpu")`, as the tests do). Without a card the default
+raises; nothing falls back to the CPU.
 
 Seeding cannot agree bitwise with the JAX package, which draws its jitter
 with jax.random: here the same np.random.default_rng(0) draw seeds a
@@ -31,8 +33,12 @@ _SEED_BLOCK = 4_194_304   # candidate positions generated per block
 class FluidSimulation:
     """Host-side owner of a SimState on `device`."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "FluidSimulation: no CUDA device; pass device='cpu' to run "
+                "the plain PyTorch path on the CPU")
         self.cfg: SimConfig | None = None
         self._solid_sdf: MeshLevelSet | None = None
         self._particles_pos: list[torch.Tensor] = []

@@ -61,6 +61,18 @@ class StepDiagnostics:
     # The port's addition: the absolute tolerance the last substep's
     # pressure CG was held to (pressure_residual <= it once converged).
     pressure_tolerance: float = 0.0
+    # The port's additions: substeps that ran pass A "stale" without a
+    # re-sort (0 under pass A "sort"), and the particle-substeps that the
+    # pass-A, midpoint and pushback visit plans left uncovered (each a part
+    # of bucket_overflow; 0 where the variant has no plan).
+    stale_substeps: int = 0
+    uncovered_pass_a: int = 0
+    uncovered_pass_b: int = 0
+    uncovered_pushback: int = 0
+    # The port's addition: the most visits per chunk that a visit plan of
+    # the frame asked for (0 without plans); a plan's coverage is cut once
+    # this exceeds its capacity (pallas_*_factor at the bench scene).
+    plan_demand: float = 0.0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)

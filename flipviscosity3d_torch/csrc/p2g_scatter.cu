@@ -29,7 +29,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "p2g_wyvill.cuh"
+
 namespace {
+
+using flip3d::Face;
+using flip3d::face_of;
+using flip3d::velocity_of;
+using flip3d::wyvill;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;          // warps (cells) per block
@@ -46,41 +53,6 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ key, int n,
       hi = mid;
   }
   return lo;
-}
-
-// Window face l (< 54): absolute offset a and the component frame's half-cell
-// shift s (0 on the component axis, 0.5 across it), as _p2g_chunk_values.
-struct Face {
-  float ax, ay, az, sx, sy, sz;
-  int comp;
-};
-
-__device__ __forceinline__ Face face_of(int l) {
-  const int comp = l / 18, oidx = l % 18;
-  const float ox = (float)(oidx / 9);
-  const float oy = (float)((oidx / 3) % 3 - 1);
-  const float oz = (float)(oidx % 3 - 1);
-  Face f;
-  f.comp = comp;
-  f.ax = comp == 0 ? ox : oy;
-  f.ay = comp == 0 ? oy : (comp == 1 ? ox : oz);
-  f.az = comp == 2 ? ox : oz;
-  f.sx = comp == 0 ? 0.f : 0.5f;
-  f.sy = comp == 1 ? 0.f : 0.5f;
-  f.sz = comp == 2 ? 0.f : 0.5f;
-  return f;
-}
-
-__device__ __forceinline__ float wyvill(const Face& f, float gi, float gj,
-                                        float gk, float px, float py, float pz,
-                                        float dx, float c1, float c2, float c3,
-                                        float r2) {
-  const float fx = (gi + f.ax) * dx - (px - f.sx * dx);
-  const float fy = (gj + f.ay) * dx - (py - f.sy * dx);
-  const float fz = (gk + f.az) * dx - (pz - f.sz * dx);
-  const float d2 = fx * fx + fy * fy + fz * fz;
-  const float w = 1.0f - c1 * d2 * d2 * d2 + c2 * d2 * d2 - c3 * d2;
-  return d2 < r2 ? w : 0.f;
 }
 
 __global__ void p2g_scatter_kernel(const float* __restrict__ pos,
@@ -127,8 +99,8 @@ __global__ void p2g_scatter_kernel(const float* __restrict__ pos,
                 pz = pos[3 * (int64_t)q + 2];
     const float vx = vel[3 * (int64_t)q], vy = vel[3 * (int64_t)q + 1],
                 vz = vel[3 * (int64_t)q + 2];
-    const float v0 = f0.comp == 0 ? vx : (f0.comp == 1 ? vy : vz);
-    const float v1 = f1.comp == 0 ? vx : (f1.comp == 1 ? vy : vz);
+    const float v0 = velocity_of(f0, vx, vy, vz);
+    const float v1 = velocity_of(f1, vx, vy, vz);
     const float a = wyvill(f0, fgi, fgj, fgk, px, py, pz, dx, c1, c2, c3, r2);
     w0 = w0 + a;
     wv0 = wv0 + a * v0;

@@ -1,5 +1,6 @@
 """The particle engine of the port: tile-major keys, the pass-A sort, the
-P2G scatter (K1) and the trilinear MAC gather (K2).
+visit plans' coverage, the P2G scatter (K1, and K5 over an unsorted stream),
+the trilinear MAC gather (K2) and the node-SDF corner gather (K6).
 
 Counterpart of flipviscosity3d_tpu/ops/pallas_particles.py. That module
 builds one-hot MXU matmuls over visit plans; the port keeps only what they
@@ -16,8 +17,18 @@ compute:
 - `gather_mac` samples n_grids in {1, 2} MAC velocity grids trilinearly at
   each particle, restricted to the home cell's 2x3x3 window.
 
-Both take the plain PyTorch version for CPU tensors and launch their CUDA
-kernel (csrc/p2g_scatter.cu, csrc/gather_mac.cu) for CUDA tensors.
+Without a sort (the "stale" pass A, the pass-B midpoint plan, the kernel
+pushback) the stream is cut into chunks of C = 512 particles, and a visit
+plan lets each chunk touch at most `budget` distinct tiles (and the whole
+plan at most midpoint_plan_size visits). Of a plan the port keeps what the
+H100 needs: the per-particle `covered` mask, bit for bit the JAX one, and
+for the scatter the tile-major incidence list as a CSR (per tile, the
+ascending ids of the chunks that touch it). `scatter_p2g_table_stale` then
+computes the in-cell ranks itself, in stream order, and `gather_rows8`
+reads the 8 node-SDF corners of each covered particle's home cell.
+
+Every kernel wrapper takes the plain PyTorch version for CPU tensors and
+launches its CUDA kernel (csrc/*.cu) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -29,12 +40,15 @@ import torch
 
 from .. import _build
 from .grids import shifted_read
+from .stream_transfers import NODE_CORNERS
 
 TILE = (8, 8, 8)
 W = TILE[0] * TILE[1] * TILE[2]    # cells per tile
+C = 512                             # particles per chunk of a visit plan
 N_P2G = 108                         # 54 weight lanes + 54 weight*velocity
 FAR = 1.0e8                         # empty-slot position sentinel
-MAX_CAP = 32                        # slot table capacity the kernel holds
+MAX_CAP = 32                        # slot table capacity the kernels hold
+_IMAX = torch.iinfo(torch.int32).max   # pad key / empty extraction slot
 
 
 def check_grid(grid_shape) -> None:
@@ -89,18 +103,162 @@ class TiledStream:
     vel: torch.Tensor    # (N,3) sorted velocities
 
 
+def _run_rank(key_s):
+    """In-cell rank of each element of sorted keys: its distance from the
+    start of its run of equal keys."""
+    n = key_s.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=key_s.device)
+    new_run = torch.ones(n, dtype=torch.bool, device=key_s.device)
+    new_run[1:] = key_s[1:] != key_s[:-1]
+    run_start = torch.cummax(
+        torch.where(new_run, idx, torch.zeros_like(idx)), dim=0).values
+    return idx - run_start
+
+
 def tiled_sort(pos, vel, dx, grid_shape) -> TiledStream:
     """One stable sort per substep plus the in-cell rank by run starts."""
     key = key_of_position(pos, dx, grid_shape)
     key_s, perm = torch.sort(key, stable=True)
-    n = key_s.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=key.device)
-    new_run = torch.ones(n, dtype=torch.bool, device=key.device)
-    new_run[1:] = key_s[1:] != key_s[:-1]
-    run_start = torch.cummax(
-        torch.where(new_run, idx, torch.zeros_like(idx)), dim=0).values
-    rank = idx - run_start
-    return TiledStream(key_s, rank, pos[perm], vel[perm])
+    return TiledStream(key_s, _run_rank(key_s), pos[perm], vel[perm])
+
+
+def sort_by_key(key, fields):
+    """Stable sort of `fields` (tensors of leading size N) by `key` ->
+    (sorted key, tuple of sorted fields): the pass-B "sort" re-sort and the
+    stale pass A's periodic re-sort."""
+    key_s, perm = torch.sort(key, stable=True)
+    return key_s, tuple(f[perm] for f in fields)
+
+
+# ---------------------------------------------------------------------------
+# visit-plan coverage without a sort
+# ---------------------------------------------------------------------------
+
+def n_chunks(n: int) -> int:
+    return (n + C - 1) // C
+
+
+def midpoint_plan_size(n: int, factor: float = 3.0, budget: int = 8) -> int:
+    """Visit capacity of a budget plan over n particles: budget visits per
+    chunk outright while that is <= 8192 visits (exhaustive within the
+    budget), else factor visits per chunk (at least one more than a chunk
+    each, plus 8). Incidences past the capacity are not covered."""
+    exhaustive = budget * n_chunks(n)
+    if exhaustive <= 8192:
+        return exhaustive
+    return max(int(factor * n_chunks(n)), n_chunks(n) + 8)
+
+
+def _pad_chunk_keys(key):
+    """(N,) keys -> (n_chunks, C) int32, the ragged last chunk padded with
+    _IMAX."""
+    n = key.shape[0]
+    km = key.to(torch.int32)
+    pad = n_chunks(n) * C - n
+    if pad:
+        km = torch.cat([km, torch.full((pad,), _IMAX, dtype=torch.int32,
+                                       device=km.device)])
+    return km.reshape(-1, C)
+
+
+def _budget_extract(kmr, budget: int):
+    """Per-chunk distinct tiles, ascending, by `budget` min-sweeps. Returns
+    (tiles (n_chunks, budget) with _IMAX empties, tm (n_chunks, C) each
+    particle's tile, off (n_chunks + 1,) the chunks' first visit)."""
+    tm = torch.where(kmr == _IMAX, kmr, kmr // W)
+    rem = tm
+    tiles = []
+    for _ in range(budget):
+        m = rem.min(dim=1).values
+        tiles.append(m)
+        rem = rem.masked_fill(rem == m[:, None], _IMAX)
+    tiles = torch.stack(tiles, dim=1)
+    cnt = (tiles != _IMAX).sum(dim=1, dtype=torch.int32)
+    off = torch.cat([torch.zeros(1, dtype=torch.int32, device=kmr.device),
+                     torch.cumsum(cnt, 0, dtype=torch.int32)])
+    return tiles, tm, off
+
+
+def _budget_plan(key, budget: int, factor: float):
+    """One budget extraction over keys in stream order -> (covered (N,)
+    bool, tiles, off, nv). A particle is covered iff its tile was extracted
+    for its chunk and that incidence's visit (the chunk's first visit plus
+    the tile's rank among the chunk's tiles) lies inside the plan's nv
+    visits; off[-1] is the number of visits the chunks ask for."""
+    n = key.shape[0]
+    kmr = _pad_chunk_keys(key)
+    tiles, tm, off = _budget_extract(kmr, budget)
+    nv = midpoint_plan_size(n, factor, budget)
+    slot = torch.zeros_like(tm)
+    hit = torch.zeros(tm.shape, dtype=torch.bool, device=tm.device)
+    for bb in range(budget):
+        col = tiles[:, bb:bb + 1]
+        slot += (col < tm).to(torch.int32)
+        hit |= col == tm
+    placed = off[:-1, None] + slot < nv
+    covered = hit & (slot < budget) & placed & (kmr != _IMAX)
+    return covered.reshape(-1)[:n], tiles, off, nv
+
+
+@dataclasses.dataclass
+class VisitPlan:
+    """What the H100 keeps of a visit plan over keys in stream order.
+
+    covered: (N,) bool. False marks a particle the plan does not visit:
+        the caller falls back and counts it.
+    visits: () int32 on the keys' device, the visits the chunks ask for
+        before the capacity cut (the distinct tiles of each chunk, at most
+        budget per chunk); coverage is cut once it exceeds
+        midpoint_plan_size.
+    """
+
+    covered: torch.Tensor
+    visits: torch.Tensor
+
+
+def plan_midpoint_visits(key_m, budget: int = 8,
+                         factor: float = 3.0) -> VisitPlan:
+    """The midpoint visit plan over keys in their current (pass-A)
+    order."""
+    covered, _, off, _ = _budget_plan(key_m, budget, factor)
+    return VisitPlan(covered, off[-1])
+
+
+@dataclasses.dataclass
+class ScatterPlan(VisitPlan):
+    """The stale pass A's plan over unsorted home keys: a VisitPlan (its
+    coverage equal to plan_midpoint_visits over the same keys) and
+
+    tile_ptr: (n_tiles + 1,) int32 and tile_chunks: (n_incidences,) int32,
+        a CSR: the chunks touching tile t are tile_chunks[tile_ptr[t]:
+        tile_ptr[t + 1]], ascending. A listed (chunk, tile) pair covers
+        every particle of the chunk homed in the tile.
+    """
+
+    tile_ptr: torch.Tensor
+    tile_chunks: torch.Tensor
+
+
+def plan_pass_a(key, grid_shape, budget: int = 8,
+                factor: float = 3.0) -> ScatterPlan:
+    """Both pass-A plans from one budget extraction: the coverage (which
+    also decides the G2P gather's rows) and the scatter's tile-major
+    incidence CSR."""
+    n_tiles = (grid_shape[0] * grid_shape[1] * grid_shape[2]) // W
+    covered, tiles, off, nv = _budget_plan(key, budget, factor)
+    b = torch.arange(budget, dtype=torch.int32, device=key.device)
+    placed = (tiles != _IMAX) & (off[:-1, None] + b < nv)
+    chunk = torch.arange(tiles.shape[0], dtype=torch.int32,
+                         device=key.device)[:, None].expand_as(tiles)
+    # chunk-major incidences, re-sorted tile-major; the stable sort keeps
+    # each tile's chunks ascending
+    tv, order = torch.sort(tiles[placed], stable=True)
+    per_tile = torch.bincount(tv.long(), minlength=n_tiles)
+    tile_ptr = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                      device=key.device),
+                          torch.cumsum(per_tile, 0)]).to(torch.int32)
+    return ScatterPlan(covered, off[-1], tile_ptr,
+                       chunk[placed][order].contiguous())
 
 
 def p2g_abs_offset(comp: int, oidx: int):
@@ -196,6 +354,81 @@ def scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap):
 
 
 scatter_p2g_table.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: the same sums and table over an unsorted stream, ranks in the kernel
+# ---------------------------------------------------------------------------
+
+def table_rank_overflow(counts, cap):
+    """Covered particles left out of the SDF table: sum over cells of
+    max(count - cap, 0), from the scatter's per-cell counts."""
+    return torch.clamp(counts - cap, min=0).sum()
+
+
+def scatter_p2g_table_stale_ref(pos, vel, key, covered, grid_shape, dx,
+                                cap):
+    """Plain version of scatter_p2g_table_stale: the covered particles' ranks
+    by a stable sort of their keys, then scatter_p2g_table_ref."""
+    key_c = key[covered]
+    key_s, perm = torch.sort(key_c, stable=True)
+    rank = torch.empty_like(key_s, dtype=torch.int32)
+    rank[perm] = _run_rank(key_s)
+    sums, table = scatter_p2g_table_ref(pos[covered], vel[covered], key_c,
+                                        rank, grid_shape, dx, cap)
+    gi, gj, gk = decode_key(key_c.long(), grid_shape)
+    std = (gi * grid_shape[1] + gj) * grid_shape[2] + gk
+    counts = torch.bincount(std, minlength=grid_shape[0] * grid_shape[1]
+                            * grid_shape[2])
+    return sums, table, counts.to(torch.int32).reshape(grid_shape)
+
+
+_STALE_ARGS = (_P,) * 4 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_F,) * 5 + (
+    _P,) * 3 + (_P,)
+
+
+def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
+                            cap):
+    """scatter_p2g_table over a stream in any order, restricted to the
+    plan's covered particles -> (sums (I,J,K,108) f32, table (I,J,K,cap,4)
+    f32, counts (I,J,K) int32). A particle's rank is its position in stream
+    order among the covered particles of its cell; counts holds every
+    covered particle of the cell, ranks >= cap included. The inputs are the
+    stream as it is (the TPU's stale_payload rows have no counterpart: the
+    kernel decodes the keys itself)."""
+    check_grid(grid_shape)
+    if _build.on_cpu(pos, "scatter_p2g_table_stale"):
+        return scatter_p2g_table_stale_ref(pos, vel, key, plan.covered,
+                                           grid_shape, dx, cap)
+    n = pos.shape[0]
+    ni, nj, nk = grid_shape
+    n_tiles = (ni * nj * nk) // W
+    _build.require(pos, "pos", torch.float32, (n, 3))
+    _build.require(vel, "vel", torch.float32, (n, 3))
+    _build.require(key, "key", torch.int32, (n,))
+    _build.require(plan.covered, "covered", torch.bool, (n,))
+    _build.require(plan.tile_ptr, "tile_ptr", torch.int32, (n_tiles + 1,))
+    _build.require(plan.tile_chunks, "tile_chunks", torch.int32)
+    if not 1 <= cap <= MAX_CAP:
+        raise ValueError(
+            f"scatter_p2g_table_stale: cap must be in [1, {MAX_CAP}]")
+    dev = pos.device
+    sums = torch.empty((ni, nj, nk, N_P2G), dtype=torch.float32, device=dev)
+    table = torch.empty((ni, nj, nk, cap, 4), dtype=torch.float32,
+                        device=dev)
+    counts = torch.empty((ni, nj, nk), dtype=torch.int32, device=dev)
+    c1, c2, c3, r2 = wyvill_constants(dx)
+    _build.launch(
+        "flip3d_p2g_scatter_stale", _STALE_ARGS,
+        pos.data_ptr(), vel.data_ptr(), key.data_ptr(),
+        plan.covered.data_ptr(), n, plan.tile_ptr.data_ptr(),
+        plan.tile_chunks.data_ptr(), ni, nj, nk, cap, _f32(dx), c1, c2, c3,
+        r2, sums.data_ptr(), table.data_ptr(), counts.data_ptr())
+    scatter_p2g_table_stale.launches += 1
+    return sums, table, counts
+
+
+scatter_p2g_table_stale.launches = 0
 
 
 def table_fields(table, cap):
@@ -316,3 +549,43 @@ def gather_mac(px, py, pz, keys, grids_u, grids_v, grids_w, dx, grid_shape):
 
 
 gather_mac.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: the 8 node-SDF corners of each covered particle's home cell
+# ---------------------------------------------------------------------------
+
+def gather_rows8_ref(keys, covered, phi_node, grid_shape):
+    """Plain version of gather_rows8."""
+    i, j, k = decode_key(keys.long(), grid_shape)
+    rows = torch.stack([phi_node[i + a, j + b, k + c]
+                        for a, b, c in NODE_CORNERS])
+    return torch.where(covered, rows, torch.zeros_like(rows))
+
+
+_ROWS8_ARGS = (_P,) * 2 + (_I,) + (_P,) + (_I,) * 3 + (_P,) + (_P,)
+
+
+def gather_rows8(keys, covered, phi_node, grid_shape):
+    """Node SDF corners phi_node[cell + o] for o in NODE_CORNERS (the
+    pushback's trilinear corners) of each particle's tile-major home cell
+    `keys` -> (8, N) f32; rows of uncovered particles are zero."""
+    check_grid(grid_shape)
+    if _build.on_cpu(keys, "gather_rows8"):
+        return gather_rows8_ref(keys, covered, phi_node, grid_shape)
+    n = keys.shape[0]
+    ni, nj, nk = grid_shape
+    _build.require(keys, "keys", torch.int32, (n,))
+    _build.require(covered, "covered", torch.bool, (n,))
+    _build.require(phi_node, "phi_node", torch.float32,
+                   (ni + 1, nj + 1, nk + 1))
+    out = torch.empty((8, n), dtype=torch.float32, device=keys.device)
+    _build.launch(
+        "flip3d_gather_rows8", _ROWS8_ARGS,
+        keys.data_ptr(), covered.data_ptr(), n, phi_node.data_ptr(),
+        ni, nj, nk, out.data_ptr())
+    gather_rows8.launches += 1
+    return out
+
+
+gather_rows8.launches = 0

@@ -1,19 +1,23 @@
-"""The bench scene, the main path run, and the kernel-vs-plain checks.
+"""The bench scene, the main paths, and the kernel-vs-plain checks.
 
-`run_main_path(device, res, frames)` builds the scene that bench.py runs
-(a pool filling the bottom ~27% of the box, viscosity 5, gravity -9.81)
-through FluidSimulation, runs one warm frame and `frames` timed frames of
-dt = 0.01, and reports diagnostics, throughput, peak memory, the kernels'
-launch counts and the failed checks. `check_kernels(state, cfg)` holds
-each CUDA kernel against its plain PyTorch version on the same inputs and
-times both. chip_smoke.py runs both at 128^3 on the card; the CPU tests run
-the main path at 16^3. `profile_frames(res, frames)` traces frames of the
-scene on the card with torch.profiler (where the time goes).
+`run_main_path(device, res, frames, dt, lift, **overrides)` builds the
+scene that bench.py runs (a pool filling the bottom ~27% of the box,
+viscosity 5, gravity -9.81), lifted by `lift` in y, through
+FluidSimulation with the config `overrides`, runs one warm frame and
+`frames` timed frames of `dt`, and reports diagnostics, throughput, peak
+memory, the kernels' launch counts and the failed checks.
+`check_kernels(state, cfg)` holds each CUDA kernel against its plain
+PyTorch version on the same inputs, times both and the one PyTorch call
+that computes the same function where there is one, and states each
+kernel's bound. chip_smoke.py runs both at 128^3 on the card; the CPU tests
+run the main paths at 16^3. `profile_frames(res, frames)` traces frames of
+the scene on the card with torch.profiler (where the time goes).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import time
 
@@ -37,8 +41,33 @@ KERNELS = (
      "flipviscosity3d_tpu/ops/pallas_mg.py:245"),
     (pm.mg_up, "flipviscosity3d_torch/csrc/mg_vcycle.cu",
      "flipviscosity3d_tpu/ops/pallas_mg.py:278"),
+    (pp.scatter_p2g_table_stale,
+     "flipviscosity3d_torch/csrc/p2g_scatter_stale.cu",
+     "flipviscosity3d_tpu/ops/pallas_particles.py:714 (inkernel_rank=True,"
+     " _rank_from_accumulator :658)"),
+    (pp.gather_rows8, "flipviscosity3d_torch/csrc/gather_rows8.cu",
+     "flipviscosity3d_tpu/ops/pallas_particles.py:1265"),
 )
 DT = 0.01
+STALE_LIFT = 0.43
+# The visit-plan variants of the second main path (config.py).
+STALE_PATH = dict(pallas_pass_a="stale", pallas_pass_b="plan",
+                  pallas_pushback="kernel")
+# The main paths chip_smoke.py drives: (name, frame dt, lift of the pool in
+# y, config overrides). "bench" is bench.py's run under the JAX package's
+# default engine; "stale" lets the pool fall with frames long enough for
+# several substeps, so that stale substeps occur; "bench_sort" is the bench
+# run with pass B "sort" (a re-sort by midpoint key instead of the plan).
+MAIN_PATHS = (
+    ("bench", DT, 0.0, {}),
+    ("stale", 0.04, STALE_LIFT, STALE_PATH),
+    ("bench_sort", DT, 0.0, {"pallas_pass_b": "sort"}),
+)
+
+# One NVIDIA H100 SXM, peak rates from its datasheet: HBM bytes/s and the
+# float32 rate outside the tensor cores, FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def reset_launch_counts() -> None:
@@ -50,12 +79,27 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn, _, _ in KERNELS}
 
 
-def bench_scene(device, res: int) -> FluidSimulation:
-    """bench.py's scene (bench.py:35-100) at res^3."""
+def path_kernels(cfg: SimConfig) -> list:
+    """The kernels a substep under `cfg` launches on the card."""
+    names = ["scatter_p2g_table" if cfg.pallas_pass_a == "sort"
+             else "scatter_p2g_table_stale", "gather_mac"]
+    if "multigrid" in (cfg.pressure_preconditioner,
+                       cfg.viscosity_preconditioner):
+        names += ["mg_down", "mg_up"]
+    if cfg.pallas_pushback == "kernel":
+        names.append("gather_rows8")
+    return names
+
+
+def bench_scene(device, res: int, lift: float = 0.0,
+                **overrides) -> FluidSimulation:
+    """bench.py's scene (bench.py:35-100) at res^3, the pool's box moved up
+    by `lift`, with config `overrides`."""
     sim = FluidSimulation(device)
-    sim.initialize(res, res, res, 1.0 / res, bucket_capacity=16)
+    sim.initialize(res, res, res, 1.0 / res, bucket_capacity=16, **overrides)
     lo = 2.5 / res
-    sim.add_liquid(box_mesh((lo, lo, lo), (1.0 - lo, 0.285, 1.0 - lo)))
+    sim.add_liquid(box_mesh((lo, lo + lift, lo),
+                            (1.0 - lo, 0.285 + lift, 1.0 - lo)))
     sim.set_viscosity(5.0)
     sim.set_gravity(0.0, -9.81, 0.0)
     return sim
@@ -66,38 +110,46 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def run_main_path(device, res: int, frames: int, log=print) -> dict:
-    """Drive FluidSimulation on the bench scene: one warm frame, then
-    `frames` timed frames. Returns a dict of results; `failures` lists the
-    checks that did not hold."""
+def run_main_path(device, res: int, frames: int, dt: float = DT,
+                  lift: float = 0.0, log=print, **overrides) -> dict:
+    """Drive FluidSimulation on the bench scene (lifted by `lift`, config
+    `overrides`): one warm frame, then `frames` timed frames of `dt`. The
+    launch counts are set to 0 just before the warm frame and read after
+    the last. Returns a dict of results; `failures` lists the checks that
+    did not hold."""
     dev = torch.device(device)
-    sim = bench_scene(dev, res)
+    sim = bench_scene(dev, res, lift, **overrides)
     n = int(sim.state.pos.shape[0])
-    log(json.dumps({"scene": f"{res}^3", "particles": n, "device": str(dev)}))
-    reset_launch_counts()
+    log(json.dumps({"scene": f"{res}^3", "lift": lift, "particles": n,
+                    "device": str(dev), "dt": dt, **overrides}))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
     diags = []
     for frame in range(frames + 1):
         if frame == 1:
             _sync(dev)
             t0 = time.perf_counter()
-        d = sim.advance(DT)
+        d = sim.advance(dt)
         diags.append(d)
         log(json.dumps({"frame": frame, "warm": frame == 0, **d.as_dict()}))
     _sync(dev)
     wall = time.perf_counter() - t0
+    launches = launch_counts()
     substeps = sum(d.substeps for d in diags[1:])
     result = {
         "particles": n,
         "frames": [d.as_dict() for d in diags],
         "timed_frames": frames,
         "substeps": substeps,
+        "stale_substeps": sum(d.stale_substeps for d in diags[1:]),
+        "bucket_overflow": [d.bucket_overflow for d in diags],
         "wall_s": wall,
         "substeps_per_s": substeps / wall,
         "peak_bytes": (torch.cuda.max_memory_allocated()
                        if dev.type == "cuda" else None),
-        "launches": launch_counts(),
+        "launches": launches,
+        "path_kernels": path_kernels(sim.cfg),
     }
     result["failures"] = _main_path_failures(sim, diags, result, dev)
     return result
@@ -121,7 +173,8 @@ def _main_path_failures(sim, diags, result, dev) -> list:
         failures.append("no frame ran the viscosity solve")
     if dev.type == "cuda":
         failures += [f"kernel {k} was never launched"
-                     for k, c in result["launches"].items() if c == 0]
+                     for k in result["path_kernels"]
+                     if result["launches"][k] == 0]
     return failures
 
 
@@ -129,21 +182,46 @@ def _main_path_failures(sim, diags, result, dev) -> list:
 # kernel vs plain version, on the card
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Median CUDA-event time of fn() over `reps` runs after a warm-up."""
+def time_ms(fn, batch_ms: float = 50.0, repeats: int = 3) -> float:
+    """CUDA-event time of one fn() call: after two warm-up calls, the
+    median over `repeats` event pairs, each around as many back-to-back
+    calls as fill about `batch_ms` (1 to 200), divided by that count."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+
+    def batch(count):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(count):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end) / count
+
+    count = max(1, min(200, int(batch_ms / max(batch(1), 1e-3))))
+    return statistics.median(batch(count) for _ in range(repeats))
+
+
+def bound(bytes_moved: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the float32 operations over the f32 rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_moved, "flops": flops}
+
+
+# float32 operations per (particle, window face) of the Wyvill weight and
+# its two sums (p2g_wyvill.cuh): 15 for the offset, 5 for d2, 9 for the
+# polynomial, 3 to accumulate.
+_P2G_FLOPS_PER_FACE = 32
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def compare(name, got, want, rtol, atol) -> dict:
@@ -185,19 +263,43 @@ def _v_cycle_plain(hier, b, omega, scale):
     return cycle(0, b)
 
 
+def stale_orders(pos_s, cfg: SimConfig, gen) -> dict:
+    """Two stale orders of sorted positions `pos_s`, clamped into the
+    domain: "falling" lifts them by the stale path's lift and moves every
+    particle down by 0.8 to 1.0 times one CFL substep (cfl_number cells),
+    smoothly along x, as one substep of that path's falling pool does;
+    "random steps" moves each by uniform steps of up to 1.5 cells per
+    axis."""
+    dx = cfg.dx
+    lo, his = _clamp_bounds(cfg)
+    hi = torch.tensor(his, device=pos_s.device)
+    x = pos_s[:, 0] / (cfg.isize * dx)
+    fall = pos_s.clone()
+    fall[:, 1] += STALE_LIFT - cfg.cfl_number * dx * (
+        0.8 + 0.2 * torch.sin(2.0 * math.pi * x))
+    steps = pos_s + dx * (3.0 * torch.rand(pos_s.shape, generator=gen,
+                                           device=pos_s.device) - 1.5)
+    return {label: torch.minimum(torch.clamp(p, min=lo), hi)
+            for label, p in (("falling", fall), ("random steps", steps))}
+
+
 def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
     """Each kernel against its plain version on the card at the shapes the
-    main path gives it: K1 on the scene's sorted particles, K2 with two
+    main paths give it: K1 on the scene's sorted particles; K2 with two
     grids at the particles and one grid at midpoints (some outside the
-    domain), K3/K4 on a pressure-sized (1,I,J,K) and a viscosity-sized
+    domain); K3/K4 on a pressure-sized (1,I,J,K) and a viscosity-sized
     (3,I+1,J+1,K+1) level with the bf16 operator, and a whole V-cycle on
-    each. Returns one record per kernel with its checks, kernel and plain
-    times."""
+    each; K5 and K6 through plans of cfg's budgets over the two
+    stale_orders of the sorted particles, timed on "falling". Returns one
+    record per kernel with its checks, the kernel's, the plain version's
+    and the library call's times, and its bound."""
     dev = state.pos.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     shape, dx, cap = cfg.grid_shape, cfg.dx, cfg.sdf_cap
     n = state.pos.shape[0]
+    n_cells = cfg.n_cells
+    table_bytes = (4 * pp.N_P2G + 16 * cap) * n_cells
     records = {}
 
     # K1: P2G scatter + slot table
@@ -214,7 +316,9 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
                    "plain": overflow, "ok": n - occupied_k == overflow})
     records["scatter_p2g_table"] = (
         checks, lambda: pp.scatter_p2g_table(*args),
-        lambda: pp.scatter_p2g_table_ref(*args))
+        lambda: pp.scatter_p2g_table_ref(*args), None,
+        bound(_nbytes(*args[:4]) + table_bytes,
+              _P2G_FLOPS_PER_FACE * 54 * n))
 
     # K2: G2P gather, pass A (2 grids) and pass B (1 grid at midpoints)
     faces = (cfg.u_shape, cfg.v_shape, cfg.w_shape)
@@ -236,8 +340,13 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
                 pp.gather_mac(*args_b), pp.gather_mac_ref(*args_b),
                 1e-5, 1e-6),
     ]
-    records["gather_mac"] = (checks, lambda: pp.gather_mac(*args_a),
-                             lambda: pp.gather_mac_ref(*args_a))
+    # 3 components x (9 for the fractions + per grid 18 faces x (3 weight
+    # products + 2 to accumulate)), n_grids = 2
+    records["gather_mac"] = (
+        checks, lambda: pp.gather_mac(*args_a),
+        lambda: pp.gather_mac_ref(*args_a), None,
+        bound(_nbytes(px, py, pz, stream.key, *gu, *gv, *gw) + 24 * n,
+              3 * (9 + 2 * 18 * 5) * n))
 
     # K3 / K4 on both solves' fine level shapes, bf16 operator
     down_checks, up_checks = [], []
@@ -265,22 +374,89 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
         down_checks.append(cyc)
         up_checks.append(cyc)
         if label == "viscosity":
+            cells = b.numel()
+            # DOWN: 3 for x, 14 for A x and r, 1 to pool; UP: 2 for the
+            # prolongation, 14 for the residual, 4 for the sweep
             times["mg_down"] = (
                 lambda: pm.mg_down(d16, l16, b, cfg.mg_omega),
-                lambda: pm.mg_down_ref(d16, l16, b, cfg.mg_omega))
-            times["mg_up"] = (lambda: pm.mg_up(*up_args),
-                              lambda: pm.mg_up_ref(*up_args))
+                lambda: pm.mg_down_ref(d16, l16, b, cfg.mg_omega), None,
+                bound(_nbytes(d16, *l16, b, xr, rcr), 18 * cells))
+            times["mg_up"] = (
+                lambda: pm.mg_up(*up_args),
+                lambda: pm.mg_up_ref(*up_args), None,
+                bound(_nbytes(d16, *l16, b, xr, xc, xr), 20 * cells))
     records["mg_down"] = (down_checks, *times["mg_down"])
     records["mg_up"] = (up_checks, *times["mg_up"])
 
+    # K5 / K6 over two stale orders of the sorted particles: "falling", one
+    # CFL substep of the stale path's fall (its regime: every particle
+    # covered), which times them; and
+    # "random steps" of up to 1.5 cells, where the plans' capacity leaves a
+    # tail of the stream uncovered. The K6 library call indexes a
+    # precomputed tile-major (n_cells, 8) corner table.
+    phi = state.solid.phi
+    every = torch.arange(n_cells, dtype=torch.int32, device=dev)
+    corner_table = pp.gather_rows8_ref(
+        every, torch.ones_like(every, dtype=torch.bool), phi,
+        shape).t().contiguous()
+    checks5, checks6 = [], []
+    for label, moved in stale_orders(stream.pos, cfg, gen).items():
+        key5 = pp.key_of_position(moved, dx, shape)
+        plan = pp.plan_pass_a(key5, shape, cfg.pallas_passa_budget,
+                              cfg.pallas_passa_factor)
+        covered = int(plan.covered.sum())
+        args5 = (moved, stream.vel, key5, plan, shape, dx, cap)
+        ks, kt, kc = pp.scatter_p2g_table_stale(*args5)
+        ref5 = (moved, stream.vel, key5, plan.covered, shape, dx, cap)
+        rs, rt, rc = pp.scatter_p2g_table_stale_ref(*ref5)
+        full = label == "falling"
+        checks5 += [
+            {"check": f"{label}: coverage", "covered": covered,
+             "particles": n, "incidences": int(plan.tile_chunks.numel()),
+             "ok": covered == n if full else covered > 0},
+            compare(f"{label}: sums", ks, rs, 1e-5,
+                    1e-6 * float(rs.abs().max())),
+            {"check": f"{label}: table exact",
+             "ok": bool(torch.equal(kt, rt))},
+            {"check": f"{label}: counts exact",
+             "ok": bool(torch.equal(kc, rc)),
+             "max_count": int(kc.max()),
+             "rank_overflow": int(pp.table_rank_overflow(kc, cap))},
+        ]
+        del ks, kt, kc, rs, rt, rc
+        cov6 = pp.plan_midpoint_visits(key5, cfg.pallas_midpoint_budget,
+                                       cfg.pallas_midpoint_factor).covered
+        args6 = (key5, cov6, phi, shape)
+        checks6 += [
+            compare(f"{label}: corners exact", pp.gather_rows8(*args6),
+                    pp.gather_rows8_ref(*args6), 0.0, 0.0),
+            {"check": f"{label}: coverage", "covered": int(cov6.sum()),
+             "particles": n, "ok": bool(cov6.all()) if full
+             else bool(cov6.any())}]
+        if full:   # bound to the loop's values of this input
+            records["scatter_p2g_table_stale"] = (
+                checks5, lambda a=args5: pp.scatter_p2g_table_stale(*a),
+                lambda a=ref5: pp.scatter_p2g_table_stale_ref(*a), None,
+                bound(_nbytes(moved, stream.vel, key5, plan.covered,
+                              plan.tile_ptr, plan.tile_chunks)
+                      + table_bytes + 4 * n_cells,
+                      _P2G_FLOPS_PER_FACE * 54 * covered))
+            records["gather_rows8"] = (
+                checks6, lambda a=args6: pp.gather_rows8(*a),
+                lambda a=args6: pp.gather_rows8_ref(*a),
+                lambda k=key5.long(): torch.index_select(corner_table, 0, k),
+                bound(_nbytes(key5, cov6, phi) + 32 * n, 0))
+
     out = []
     for fn, source, replaces in KERNELS:
-        checks, kern, plain = records[fn.__name__]
+        checks, kern, plain, library, bnd = records[fn.__name__]
         rec = {
             "name": fn.__name__, "route": "cuda", "source": source,
             "replaces": replaces,
             "max_abs_err": max(c.get("max_abs_err", 0.0) for c in checks),
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library) if library else None,
+            **bnd,
             "ok": all(c["ok"] for c in checks), "checks": checks,
         }
         log(json.dumps(rec))
@@ -288,20 +464,22 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
     return out
 
 
-def profile_frames(res: int, frames: int, top: int = 25) -> dict:
-    """Trace `frames` frames of the bench scene on the card (after one warm
-    frame) with torch.profiler: wall time, summed device kernel time, and
-    the `top` operators by device self time."""
+def profile_frames(res: int, frames: int, top: int = 25, dt: float = DT,
+                   lift: float = 0.0, **overrides) -> dict:
+    """Trace `frames` frames of `dt` of the bench scene (lifted by `lift`,
+    config `overrides`) on the card after one warm frame with
+    torch.profiler: wall time, summed device kernel time, and the `top`
+    operators by device self time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sim = bench_scene("cuda", res)
-    sim.advance(DT)
+    sim = bench_scene("cuda", res, lift, **overrides)
+    sim.advance(dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        substeps = sum(sim.advance(DT).substeps for _ in range(frames))
+        substeps = sum(sim.advance(dt).substeps for _ in range(frames))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies), so no time counts twice

@@ -32,13 +32,12 @@ from flipviscosity3d_torch.ops import mesh_sdf as tmesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# JAX fields with no counterpart in the port: the TPU engine variants and
-# their knobs (the port implements one variant of each, config.py).
+# JAX fields with no counterpart in the port: the engine choice (the port
+# has one) and the knobs that only choose a TPU layout or precision
+# (config.py).
 TPU_ONLY = {
-    "particle_engine", "pallas_pass_a", "pallas_pass_b", "pallas_pushback",
-    "pallas_midpoint_budget", "pallas_midpoint_factor", "pallas_resort_every",
-    "pallas_passa_budget", "pallas_passa_factor", "pallas_split_gather",
-    "pallas_gather_dtype", "pallas_split_terms", "mg_backend",
+    "particle_engine", "pallas_split_gather", "pallas_gather_dtype",
+    "pallas_split_terms", "mg_backend",
 }
 SEED_BOX = ((0.2, 0.2, 0.2), (0.8, 0.55, 0.8))
 OBSTACLE = ((0.45, 0.1, 0.4), (0.6, 0.3, 0.55))
@@ -58,10 +57,33 @@ def test_config_shared_fields_match_jax_defaults():
 
 @pytest.mark.parametrize("field", [
     "on_bucket_overflow", "mg_operator_dtype", "viscosity_preconditioner",
-    "pressure_preconditioner"])
+    "pressure_preconditioner", "pallas_pass_a", "pallas_pass_b",
+    "pallas_pushback"])
 def test_config_rejects_unknown_enum_values(field):
     with pytest.raises(ValueError):
         SimConfig(**{field: "nonsense"})
+
+
+@pytest.mark.parametrize("field", [
+    "pallas_pass_a", "pallas_pass_b", "pallas_pushback"])
+def test_config_variant_values_match_jax(field):
+    """Each visit-plan switch takes JAX's values, and JAX takes the port's
+    (the JAX config reaches none of them unless valid in its engine)."""
+    from flipviscosity3d_torch.config import _ENUMS
+    for value in _ENUMS[field]:
+        assert getattr(SimConfig(**{field: value}), field) == value
+        assert getattr(JaxConfig(**{field: value}), field) == value
+
+
+def test_fluid_simulation_defaults_to_the_card():
+    """FluidSimulation() places its state on the card; where torch sees no
+    card it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        assert FluidSimulation().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            FluidSimulation()
+    assert FluidSimulation("cpu").device.type == "cpu"
 
 
 def test_package_imports_without_jax():

@@ -26,16 +26,29 @@ def test_kernels_match_plain_versions(cuda):
     sim = smoke.bench_scene(cuda, 32)
     records = smoke.check_kernels(sim.state, sim.cfg)
     assert [r["name"] for r in records] == [
-        "scatter_p2g_table", "gather_mac", "mg_down", "mg_up"]
+        "scatter_p2g_table", "gather_mac", "mg_down", "mg_up",
+        "scatter_p2g_table_stale", "gather_rows8"]
     for r in records:
         assert r["ok"], r
+        assert r["bound_by"] in ("bytes", "operations")
+        assert 0 < r["bound_ms"] and 0 < r["ms"]
 
 
 @pytest.mark.gpu
 def test_main_path_launches_every_kernel(cuda):
-    result = smoke.run_main_path(cuda, 32, 1)
-    assert result["failures"] == []
-    assert all(c > 0 for c in result["launches"].values())
+    launched = set()
+    for _, dt, lift, overrides in smoke.MAIN_PATHS:
+        result = smoke.run_main_path(cuda, 32, 1, dt=dt, lift=lift,
+                                     **overrides)
+        assert result["failures"] == []
+        launched |= {k for k, c in result["launches"].items() if c > 0}
+    assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS}
+
+
+@pytest.mark.gpu
+def test_fluid_simulation_defaults_to_the_card(cuda):
+    from flipviscosity3d_torch import FluidSimulation
+    assert FluidSimulation().device.type == "cuda"
 
 
 @pytest.mark.gpu
@@ -58,3 +71,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     key = torch.zeros(4, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
         pp.scatter_p2g_table(pos, pos, key, key, (8, 8, 8), 1 / 8, 4)
+    plan = pp.plan_pass_a(key.int(), (8, 8, 8))
+    with pytest.raises(ValueError):
+        pp.scatter_p2g_table_stale(pos, pos, key, plan, (8, 8, 8), 1 / 8, 4)
+    with pytest.raises(ValueError):
+        pp.gather_rows8(key.int(), plan.covered.int(),
+                        torch.zeros((9, 9, 9), device=cuda), (8, 8, 8))

@@ -3,13 +3,16 @@ the CPU, at 16^3.
 
 One scene (the template of tests/test_pallas_particles.py) is set up by the
 port and handed to both packages as the same numpy state. The JAX reference
-is the "pallas" engine with pass B = "sort", the semantics the port
-implements (its JAX default pass B falls back to ballistic motion past a
-visit budget). JAX re-sorts particles by midpoint in pass B and the port
-keeps the pass-A order, so particles are compared as multisets (paired by
-nearest position).
+is the "pallas" engine under the same pass-A / pass-B / pushback variants as
+the port's config. Both packages leave a substep with the particles in the
+same order, so particles are compared element by element. A particle within
+float noise of a cell face could take another key in one package and
+reorder the stream; the seeds below were checked to have none.
 """
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +31,7 @@ from flipviscosity3d_torch.io.trianglemesh import box_mesh
 JAX_CFG = JaxConfig(isize=16, jsize=16, ksize=16, dx=1.0 / 16,
                     bucket_capacity=16, particle_engine="pallas",
                     pallas_pass_b="sort")
+DT = float(np.float32(0.01))
 
 
 @pytest.fixture(scope="module")
@@ -47,72 +51,157 @@ def _jax_state(arrays):
         k: jnp.asarray(arrays[k]) for k in JaxState._fields if k != "solid"})
 
 
-def _paired(tpos, tvel, jpos, jvel):
-    """Both packages' particles in one order: each port particle is paired
-    with its nearest JAX particle (the pairing must be one-to-one). Sorting
-    rows lexicographically is not enough: clamped particles share a
-    coordinate exactly, so 1e-7 noise in another one reorders them."""
-    tpos, tvel = np.asarray(tpos, np.float64), np.asarray(tvel)
-    jpos, jvel = np.asarray(jpos, np.float64), np.asarray(jvel)
-    nearest = np.concatenate([
-        np.argmin(((tpos[i:i + 512, None] - jpos[None]) ** 2).sum(-1), 1)
-        for i in range(0, len(tpos), 512)])
-    assert len(np.unique(nearest)) == len(tpos)
-    return tpos, tvel, jpos[nearest], jvel[nearest]
-
-
-def test_substep_and_two_frames_match_jax(scene):
-    """One test, so both halves share one compile of the JAX advance.
-
-    One substep from a moving state (particles in a rigid rotation plus
-    noise, made with numpy; grids at rest, so the JAX advance loop runs
-    exactly one `step` of the whole dt): u, v, w to 1e-5 of max|u|;
-    positions as multisets to 1e-6; velocities to 3e-5 of their max (the
-    PIC/FLIP blend sums three grid samples); iteration and overflow counts
-    equal.
-
-    Two frames of advance from rest: substep and CG iteration counts equal
-    frame by frame (observed at this scene: each solve's last residual is
-    <= 0.71 of its tolerance and the one before >= 1.33 of it, so no count
-    sits at the boundary); positions, velocities
-    and u to rtol 2e-3 / atol 2e-4, as tests/test_pallas_particles.py:426-436
-    holds the JAX engines."""
-    cfg, arrays = scene
+def _moving(arrays):
+    """The scene's particles in a rigid rotation plus noise (numpy, seeded);
+    grids at rest."""
     rng = np.random.default_rng(0)
     p = arrays["pos"] - np.float32(0.5)
     vel = np.stack([-p[:, 1], p[:, 0], 0.3 * p[:, 2]], axis=1)
-    moving = dict(arrays, vel=(vel + rng.normal(scale=0.05, size=vel.shape))
-                  .astype(np.float32))
-    jnew, jd = jstep.advance(_jax_state(moving), 0.01, JAX_CFG)
-    assert int(jd.substeps) == 1
-    tnew, td = tstep.step(state_from_numpy(moving, "cpu"), 0.01, cfg)
+    return dict(arrays, vel=(vel + rng.normal(scale=0.05, size=vel.shape))
+                .astype(np.float32))
+
+
+def _port_cfg(cfg, jcfg):
+    """The port's config with the JAX config's particle-engine variants."""
+    names = [f.name for f in dataclasses.fields(cfg)
+             if f.name.startswith("pallas_") or f.name == "sdf_capacity"
+             or f.name == "cfl_number"]
+    return dataclasses.replace(cfg, **{k: getattr(jcfg, k) for k in names})
+
+
+def _assert_substep_matches(tnew, td, jnew, jd):
+    """u, v, w to 1e-5 of max|u|; positions to 1e-6; velocities to 3e-5 of
+    their max (the PIC/FLIP blend sums three grid samples), element by
+    element; iteration, overflow and liquid-cell counts equal."""
     for name in ("u", "v", "w"):
         j = np.asarray(getattr(jnew, name))
         np.testing.assert_allclose(getattr(tnew, name).numpy(), j, rtol=0,
                                    atol=1e-5 * np.abs(j).max(), err_msg=name)
-    tp, tv, jp, jv = _paired(tnew.pos, tnew.vel, jnew.pos, jnew.vel)
-    np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-6)
-    np.testing.assert_allclose(tv, jv, rtol=0, atol=3e-5 * np.abs(jv).max())
-    assert td["pressure_iterations"] == int(jd.pressure_iterations)
-    assert td["viscosity_iterations"] == int(jd.viscosity_iterations)
-    assert int(td["bucket_overflow"]) == int(jd.bucket_overflow)
-    assert int(td["liquid_cells"]) == int(jd.liquid_cells)
+    jv = np.asarray(jnew.vel)
+    np.testing.assert_allclose(tnew.pos.numpy(), np.asarray(jnew.pos),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tnew.vel.numpy(), jv, rtol=0,
+                               atol=3e-5 * np.abs(jv).max())
+    assert td["pressure_iterations"] == int(jd["pressure_iterations"])
+    assert td["viscosity_iterations"] == int(jd["viscosity_iterations"])
+    assert int(td["bucket_overflow"]) == int(jd["bucket_overflow"])
+    assert int(td["liquid_cells"]) == int(jd["liquid_cells"])
 
-    js, ts = _jax_state(arrays), state_from_numpy(arrays, "cpu")
-    for _ in range(2):
-        js, jd = jstep.advance(js, 0.01, JAX_CFG)
-        ts, td = tstep.advance(ts, 0.01, cfg)
+
+def _assert_frames_match(ts, tds, js, jds):
+    """Substep and CG iteration counts and overflow equal frame by frame;
+    positions, velocities and u to rtol 2e-3 / atol 2e-4, as
+    tests/test_pallas_particles.py:426-436 holds the JAX engines."""
+    for td, jd in zip(tds, jds):
         assert td.substeps == int(jd.substeps)
         assert td.pressure_iterations == int(jd.pressure_iterations)
         assert td.viscosity_iterations == int(jd.viscosity_iterations)
         assert td.bucket_overflow == int(jd.bucket_overflow)
         np.testing.assert_allclose(td.max_velocity, float(jd.max_velocity),
                                    rtol=1e-5)
-    tp, tv, jp, jv = _paired(ts.pos, ts.vel, js.pos, js.vel)
-    np.testing.assert_allclose(tp, jp, rtol=2e-3, atol=2e-4)
-    np.testing.assert_allclose(tv, jv, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(ts.pos.numpy(), np.asarray(js.pos),
+                               rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(ts.vel.numpy(), np.asarray(js.vel),
+                               rtol=2e-3, atol=2e-4)
     np.testing.assert_allclose(ts.u.numpy(), np.asarray(js.u), rtol=2e-3,
                                atol=2e-4)
+
+
+def _advance_both(arrays, cfg, jcfg, dt, frames):
+    js, ts = _jax_state(arrays), state_from_numpy(arrays, "cpu")
+    jds, tds = [], []
+    for _ in range(frames):
+        js, jd = jstep.advance(js, dt, jcfg)
+        ts, td = tstep.advance(ts, dt, cfg)
+        jds.append(jd)
+        tds.append(td)
+    return ts, tds, js, jds
+
+
+def _jax_substep(arrays, dt, jcfg):
+    """One JAX `advance` of a whole dt from grids at rest: exactly one
+    substep (substep_idx 0)."""
+    jnew, jd = jstep.advance(_jax_state(arrays), dt, jcfg)
+    assert int(jd.substeps) == 1
+    return jnew, {k: getattr(jd, k) for k in (
+        "pressure_iterations", "viscosity_iterations", "bucket_overflow",
+        "liquid_cells")}
+
+
+def test_substep_and_two_frames_match_jax(scene):
+    """One test, so both halves share one compile of the JAX advance, under
+    pass A "sort", pass B "sort" and the gather pushback.
+
+    One substep from a moving state, element by element
+    (_assert_substep_matches). Two frames of advance from rest
+    (_assert_frames_match; observed at this scene: each solve's last
+    residual is <= 0.71 of its tolerance and the one before >= 1.33 of it,
+    so no count sits at the boundary)."""
+    base, arrays = scene
+    cfg = _port_cfg(base, JAX_CFG)
+    moving = _moving(arrays)
+    jnew, jd = _jax_substep(moving, 0.01, JAX_CFG)
+    tnew, td = tstep.step(state_from_numpy(moving, "cpu"), DT, cfg)
+    _assert_substep_matches(tnew, td, jnew, jd)
+    _assert_frames_match(*_advance_both(arrays, cfg, JAX_CFG, 0.01, 2))
+
+
+def test_pass_b_sort_keeps_jax_order_with_overflowing_table(scene):
+    """Pass B "sort" re-sorts the particles by midpoint key, as JAX does:
+    with an SDF capacity of 2 the slot table overflows, so the next pass A
+    (a stable sort of that order) fills the table with the same particles
+    as JAX only if the order is the same. One substep element by element,
+    then two frames."""
+    base, arrays = scene
+    jcfg = dataclasses.replace(JAX_CFG, sdf_capacity=2)
+    cfg = _port_cfg(base, jcfg)
+    moving = _moving(arrays)
+    jnew, jd = _jax_substep(moving, 0.01, jcfg)
+    tnew, td = tstep.step(state_from_numpy(moving, "cpu"), DT, cfg)
+    assert int(td["bucket_overflow"]) > 0
+    _assert_substep_matches(tnew, td, jnew, jd)
+    ts, tds, js, jds = _advance_both(
+        state_to_numpy(tnew), cfg, jcfg, 0.01, 2)
+    assert all(td.bucket_overflow > 0 for td in tds)
+    _assert_frames_match(ts, tds, js, jds)
+
+
+STALE = dict(pallas_pass_a="stale", pallas_pass_b="plan",
+             pallas_pushback="kernel", pallas_passa_budget=2,
+             pallas_midpoint_budget=2)
+
+
+def test_stale_plan_kernel_substep_matches_jax(scene):
+    """One substep at substep_idx=1 (no re-sort: the plans run over the
+    seeding order) with stale pass A, the midpoint plan and the kernel
+    pushback, budgets of 2 so that each plan leaves particles uncovered:
+    element by element (_assert_substep_matches)."""
+    base, arrays = scene
+    jcfg = dataclasses.replace(JAX_CFG, **STALE)
+    cfg = _port_cfg(base, jcfg)
+    moving = _moving(arrays)
+    jstep_jit = jax.jit(jstep.step, static_argnames=("cfg",))
+    jnew, jd = jstep_jit(_jax_state(moving), jnp.float32(0.01), cfg=jcfg,
+                         substep_idx=jnp.int32(1))
+    tnew, td = tstep.step(state_from_numpy(moving, "cpu"), DT, cfg,
+                          substep_idx=1)
+    assert int(td["bucket_overflow"]) > 0
+    _assert_substep_matches(tnew, td, jnew, jd)
+
+
+def test_stale_plan_kernel_two_frames_match_jax(scene):
+    """Two frames of 0.08 s of advance from the moving state with stale
+    pass A re-sorted every 2 substeps and cfl_number 0.5, so that the second
+    frame takes several substeps and some run stale (substep 0 of every
+    frame re-sorts; the first frame is one substep, from grids at rest):
+    _assert_frames_match."""
+    base, arrays = scene
+    jcfg = dataclasses.replace(JAX_CFG, cfl_number=0.5,
+                               pallas_resort_every=2, **STALE)
+    cfg = _port_cfg(base, jcfg)
+    ts, tds, js, jds = _advance_both(_moving(arrays), cfg, jcfg, 0.08, 2)
+    assert sum(td.stale_substeps for td in tds) >= 1
+    _assert_frames_match(ts, tds, js, jds)
 
 
 def test_main_path_runs_on_cpu():
@@ -124,5 +213,45 @@ def test_main_path_runs_on_cpu():
     assert result["failures"] == []
     assert result["particles"] > 0 and result["substeps"] >= 2
     assert result["launches"] == {
-        "scatter_p2g_table": 0, "gather_mac": 0, "mg_down": 0, "mg_up": 0}
+        "scatter_p2g_table": 0, "gather_mac": 0, "mg_down": 0, "mg_up": 0,
+        "scatter_p2g_table_stale": 0, "gather_rows8": 0}
+    assert result["path_kernels"] == [
+        "scatter_p2g_table", "gather_mac", "mg_down", "mg_up"]
     assert all(f["viscosity_iterations"] > 0 for f in result["frames"])
+    # the midpoint plan's demand, per chunk: at least one visit
+    assert all(f["plan_demand"] >= 1 for f in result["frames"])
+
+
+def test_stale_main_path_runs_on_cpu():
+    """chip_smoke.py's second path (the pool lifted so that it falls, stale
+    pass A, midpoint plan, kernel pushback) at 16^3 on CPU tensors. Cells
+    8 times wider than at 128^3 allow 8 times longer substeps, so the CFL
+    number drops to 0.5 to keep several substeps per frame, some stale."""
+    torch.set_num_threads(1)
+    name, dt, lift, overrides = smoke.MAIN_PATHS[1]
+    assert name == "stale"
+    result = smoke.run_main_path("cpu", 16, 3, dt=dt, lift=lift,
+                                 log=lambda line: None, cfl_number=0.5,
+                                 **overrides)
+    assert result["failures"] == []
+    assert result["substeps"] > 2 and result["stale_substeps"] >= 1
+    assert result["path_kernels"] == [
+        "scatter_p2g_table_stale", "gather_mac", "mg_down", "mg_up",
+        "gather_rows8"]
+    assert all(f["plan_demand"] >= 1 for f in result["frames"])
+
+
+def test_bench_sort_main_path_runs_on_cpu():
+    """chip_smoke.py's third path (the bench scene with pass B "sort", the
+    re-sort by midpoint key) at 16^3 on CPU tensors: no visit plan runs."""
+    torch.set_num_threads(1)
+    name, dt, lift, overrides = smoke.MAIN_PATHS[2]
+    assert name == "bench_sort" and overrides == {"pallas_pass_b": "sort"}
+    result = smoke.run_main_path("cpu", 16, 2, dt=dt, lift=lift,
+                                 log=lambda line: None, **overrides)
+    assert result["failures"] == []
+    assert result["substeps"] >= 2 and result["stale_substeps"] == 0
+    assert result["path_kernels"] == [
+        "scatter_p2g_table", "gather_mac", "mg_down", "mg_up"]
+    assert all(f["plan_demand"] == 0 and f["uncovered_pass_b"] == 0
+               for f in result["frames"])
