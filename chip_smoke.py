@@ -6,15 +6,16 @@
 1. Prints the card (name and power limit from nvidia-smi), the torch and
    CUDA versions and the device count; exits non-zero without a CUDA device
    or without the flipviscosity3d_torch package beside this script.
-2. Builds the six CUDA kernels from flipviscosity3d_torch/csrc (one nvcc per
+2. Builds the CUDA kernels from flipviscosity3d_torch/csrc (one nvcc per
    source, all started together, sm_90a) and prints the build time and
    ptxas' register / spill report.
-3. Holds each kernel against its plain PyTorch version on the card, at the
-   bench scene's shapes (128^3 grid, ~4.1M particles; K5 and K6 on a
-   fully covered falling order and on a partly covered random one), and
-   times the kernel, the plain version and, where one exists, the one
-   PyTorch call that computes the same function; states each kernel's
-   bound.
+3. Holds each of the eight kernels against its plain PyTorch version on the
+   card, at the bench scene's shapes (128^3 grid, ~4.1M particles; K5 and
+   K6 on a fully covered falling order and on a partly covered random one;
+   K1 and K5 in both layouts of their sums, the K-folded one also against
+   the unfolded kernels), and times the kernel, the plain version and, where
+   one exists, the one PyTorch call that computes the same function; states
+   each kernel's bound.
 4. Drives three main paths through FluidSimulation() on the card, each
    with the launch counts set to 0 just before it and read just after:
    - "bench": the bench scene under the JAX package's default engine
@@ -30,7 +31,25 @@
    iterations), substeps/s, peak memory and the launch counts. A path fails
    if one of its kernels was never launched or a residual missed its
    tolerance.
-5. Prints the card line, one JSON line of kernel records, and as its last
+5. Drives three paths through the scene CLI (flipviscosity3d_torch.cli),
+   from mesh and scene files that it writes under build/smoke_scenes:
+   - "cli64": the CLI at its default resolution of 64, a sphere drop in an
+     inverted cube, 4 frames with PLY and OBJ exports and a checkpoint
+     every 2 frames, then a second run resumed from the checkpoint, which
+     must repeat the first run's last two frames;
+   - "bench256": the bench scene at 256^3 (~35.5M particles), one warm frame
+     and 3 frames of dt = 0.01; at this size the scatter folds its sums
+     and the face combine runs in slabs, so the path fails unless the
+     folded K1 ran and the unfolded K1 did not. One more frame of the same
+     simulation then runs under torch.profiler (device busy time over wall
+     time, and the largest device rows), and on its final state step 3 is
+     repeated at the 256^3 shapes: all eight kernels against their plain
+     versions (257^3 levels, ~35.5M particles; the plain scatters add
+     their values in 16 runs of particles, to fit the card), timed there;
+   - "stale256": the lifted pool at 256^3 under stale / plan / kernel, one
+     warm frame and 2 frames of dt = 0.04; fails unless the folded K5 and
+     K6 ran.
+6. Prints the card line, one JSON line of kernel records, and as its last
    line {"ok": true, "device": {...}} when every check held; otherwise
    prints what failed and exits 1.
 """
@@ -46,6 +65,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RES = 128
 FRAMES = 5
+LARGE_RES = 256
+SCENE_DIR = os.path.join(ROOT, "build", "smoke_scenes")
 RECORD_KEYS = ("name", "route", "source", "replaces", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -75,6 +96,7 @@ def main() -> int:
         print(f"chip_smoke: the flipviscosity3d_torch package is missing "
               f"beside this script ({e})", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = _card()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -97,26 +119,76 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = {r["name"]: 0 for r in records}
-    for name, dt, lift, overrides in smoke.MAIN_PATHS:
-        result = smoke.run_main_path("cuda", RES, FRAMES, dt=dt, lift=lift,
-                                     **overrides)
-        failures += [f"path {name}: {f}" for f in result["failures"]]
+
+    def report(name, result):
+        """Count a path's failures and launches and print its summary."""
+        failures.extend(f"path {name}: {f}" for f in result["failures"])
         for k in launches:
             launches[k] += result["launches"][k]
+        frames = result["frames"]
         print(json.dumps({
             "path": name,
             "particles": result["particles"],
-            "timed_frames": FRAMES,
+            "timed_frames": result["timed_frames"],
             "substeps": result["substeps"],
             "stale_substeps": result["stale_substeps"],
             "bucket_overflow": result["bucket_overflow"],
+            "iterations": [[f["pressure_iterations"],
+                            f["viscosity_iterations"]] for f in frames],
+            "plan_demand": [f["plan_demand"] for f in frames],
+            "uncovered": [[f["uncovered_pass_a"], f["uncovered_pass_b"],
+                           f["uncovered_pushback"]] for f in frames],
             "substeps_per_s": result["substeps_per_s"],
             "peak_bytes": result["peak_bytes"],
+            "setup_s": result["setup_s"],
             "launches": result["launches"],
             "path_kernels": result["path_kernels"],
             "card": card,
         }), flush=True)
         torch.cuda.empty_cache()
+
+    for name, dt, lift, overrides in smoke.MAIN_PATHS:
+        report(name, smoke.run_main_path("cuda", RES, FRAMES, dt=dt,
+                                         lift=lift, **overrides))
+
+    result = smoke.run_cli64("cuda", SCENE_DIR)
+    print(json.dumps({
+        "path": "cli64",
+        "obj_max_abs_err": result["obj_max_abs_err"],
+        "resumed_final_max_abs_diff": result["resumed_final_max_abs_diff"]}))
+    report("cli64", result)
+
+    result = smoke.run_scene_path("cuda", SCENE_DIR, "bench256", LARGE_RES,
+                                  3)
+    run = result.pop("run")
+    report("bench256", result)
+    prof = smoke.profile_sim(run.sim, 1, top=12)
+    print(json.dumps({
+        "profile": "the next frame of bench256 under torch.profiler",
+        "busy_over_wall": prof["device_busy_ms"] / prof["wall_ms"],
+        **prof, "card": card}), flush=True)
+    state, cfg = run.sim.state, run.sim.cfg
+    del run, result
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    large = smoke.check_kernels(state, cfg, ref_slabs=16, log=lambda _: None)
+    for r in large:
+        print(json.dumps({"at": f"{LARGE_RES}^3", **r, "card": card}),
+              flush=True)
+    print(json.dumps({"kernel_checks_at": f"{LARGE_RES}^3",
+                      "peak_bytes": torch.cuda.max_memory_allocated()}))
+    failures += [f"kernel {r['name']} disagrees with its plain version at "
+                 f"{LARGE_RES}^3" for r in large if not r["ok"]]
+    del state, large
+    torch.cuda.empty_cache()
+
+    _, dt, lift, overrides = smoke.MAIN_PATHS[1]
+    result = smoke.run_scene_path("cuda", SCENE_DIR, "stale256", LARGE_RES,
+                                  2, dt=dt, lift=lift, **overrides)
+    del result["run"]
+    report("stale256", result)
+    del result
+    torch.cuda.empty_cache()
 
     if failures:
         for f in failures:
@@ -124,6 +196,7 @@ def main() -> int:
         return 1
     kernels = [{k: r[k] for k in RECORD_KEYS}
                | {"launches": launches[r["name"]]} for r in records]
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

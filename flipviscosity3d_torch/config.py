@@ -20,9 +20,23 @@ and value sets:
   "kernel" reads them through a visit plan, and uncovered particles skip
   the pushback for one substep (counted).
 
+particle_engine is a field so that one scene file's `config` block serves
+both packages' CLIs. The port has the "pallas" engine only, which is its
+default (the JAX default is "table"); "table" and "stream" raise, naming
+the engine. pallas_split_gather (True, False or None) is taken for the same
+reason and changes nothing: in the JAX package it halves the lane width of
+pass A's gather image (two launches of one grid each instead of one of
+two), a choice of memory layout. The port's gather reads the velocity grids
+directly and has no image, so two launches would give the same samples bit
+for bit while reading the positions and keys twice: pass A always gathers
+both grids in one launch.
+
+fold_sums (the K-folded sums of the scatter at >= 2^24 cells) is no field
+here, as it is none in the JAX package: the scatter decides by the grid
+size itself (ops/pallas_particles.py).
+
 The knobs that only choose a TPU layout or precision are not fields here,
-since they change nothing the port computes: the particle engine choice
-(the port has one), pallas_split_gather, pallas_gather_dtype,
+since they change nothing the port computes: pallas_gather_dtype,
 pallas_split_terms and mg_backend. The V(1,1) V-cycle runs through the
 mg_down / mg_up kernels on the card and through their plain PyTorch
 versions on the CPU.
@@ -32,6 +46,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+
+PARTICLE_ENGINES = ("table", "stream", "pallas")   # the JAX package's
 
 _ENUMS = {
     "on_bucket_overflow": ("fallback", "error"),
@@ -72,6 +88,9 @@ class SimConfig:
     viscosity_solve_rtol: float = 1e-6
     viscosity_acceptable_error: float = 10.0
 
+    # The particle engine; only "pallas" is ported (module docstring).
+    particle_engine: str = "pallas"
+
     # Particles tracked per cell in the liquid-SDF slot table. The P2G sums
     # take every particle; particles of in-cell rank >= capacity are left out
     # of the SDF table only, and counted in bucket_overflow.
@@ -99,6 +118,8 @@ class SimConfig:
     pallas_midpoint_budget: int = 8
     pallas_midpoint_factor: float = 3.0
     pallas_pushback: str = "gather"
+    # Taken for the JAX package's scene files; no effect (module docstring).
+    pallas_split_gather: bool | None = None
 
     max_substeps: int = 64
 
@@ -113,6 +134,14 @@ class SimConfig:
     mg_coarse_scale: float = 1.4
 
     def __post_init__(self):
+        if self.particle_engine not in PARTICLE_ENGINES:
+            raise ValueError(
+                f"particle_engine must be one of {PARTICLE_ENGINES}, got "
+                f"{self.particle_engine!r}")
+        if self.particle_engine != "pallas":
+            raise ValueError(
+                f"particle_engine {self.particle_engine!r} is not ported to "
+                "flipviscosity3d_torch yet; it runs \"pallas\" only")
         for name, allowed in _ENUMS.items():
             if getattr(self, name) not in allowed:
                 raise ValueError(

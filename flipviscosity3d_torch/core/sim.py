@@ -1,8 +1,8 @@
 """FluidSimulation: the public engine API of the port.
 
 Mirrors flipviscosity3d_tpu/core/sim.py (reference fluidsimulation.h:53-63):
-initialize / add_boundary / add_liquid / set_viscosity / set_gravity /
-advance, plus particle positions. Every tensor lives on the `device` given
+initialize / add_boundary / reset_boundary / add_liquid / set_viscosity /
+set_gravity / advance, plus particle positions and velocities. Every tensor lives on the `device` given
 at construction, which is the card ("cuda") unless the caller asks for the
 CPU (`FluidSimulation("cpu")`, as the tests do). Without a card the default
 raises; nothing falls back to the CPU.
@@ -75,6 +75,10 @@ class FluidSimulation:
     def _initialize_boundary(self):
         self._solid_sdf = self._domain_boundary_sdf()
         self._state = None
+
+    def reset_boundary(self):
+        """(fluidsimulation.cpp:60-62)"""
+        self._initialize_boundary()
 
     def add_boundary(self, mesh: TriangleMesh, inverted: bool = False):
         """Union a solid obstacle (or inverted container) into the boundary
@@ -208,3 +212,7 @@ class FluidSimulation:
     @property
     def particle_positions(self) -> np.ndarray:
         return self.state.pos.cpu().numpy()
+
+    @property
+    def particle_velocities(self) -> np.ndarray:
+        return self.state.vel.cpu().numpy()

@@ -58,9 +58,11 @@ class StepDiagnostics:
     max_velocity: float = 0.0
     bucket_overflow: int = 0
     liquid_cells: int = 0
-    # The port's addition: the absolute tolerance the last substep's
-    # pressure CG was held to (pressure_residual <= it once converged).
+    # The port's additions: the absolute tolerances the last substep's
+    # pressure and viscosity CGs were held to (a residual is <= its
+    # tolerance once converged; 0 where the solve did not run).
     pressure_tolerance: float = 0.0
+    viscosity_tolerance: float = 0.0
     # The port's additions: substeps that ran pass A "stale" without a
     # re-sort (0 under pass A "sort"), and the particle-substeps that the
     # pass-A, midpoint and pushback visit plans left uncovered (each a part

@@ -4,9 +4,11 @@ Counterpart of flipviscosity3d_tpu/core/step.py (reference
 fluidsimulation.cpp:135-168) on the one particle engine the port has, the
 JAX "pallas" engine (`_step_pallas`), with its three visit-plan switches
 (config.py): pass A "sort" or "stale", pass B "plan" or "sort", pushback
-"gather" or "kernel". The particles leave every substep in the JAX
-package's order: the order decides which particles a visit plan covers and
-which fill the SDF table, so it is part of the result.
+"gather" or "kernel". At >= 2^24 cells the scatter folds its sums and the
+face combine runs in slabs, each by the JAX package's own rule. The
+particles leave every substep in the JAX package's order: the order decides
+which particles a visit plan covers and which fill the SDF table, so it is
+part of the result.
 
 The advance loop runs on the host: one read of max|u| from the card per
 substep gives the CFL substep, with the same f32 arithmetic as the JAX
@@ -86,7 +88,7 @@ def _grid_update(state: SimState, liquid_phi, p2g_sums, dt: float,
                for a, (g, b) in enumerate(zip((u, v, w), borders)))
 
     # viscosity (fluidsimulation.cpp:170-196), skipped when all zero
-    visc_iters, visc_res = 0, 0.0
+    visc_iters, visc_res, visc_tol = 0, 0.0, 0.0
     if bool((state.viscosity > 0).any()):
         volumes = vsolver.compute_volume_grids(liquid_phi, cfg)
         states = vsolver.FaceStates(solid.solid_u, solid.solid_v,
@@ -96,6 +98,7 @@ def _grid_update(state: SimState, liquid_phi, p2g_sums, dt: float,
         result = vsolver.solve_viscosity(vsys, cfg, warm_start=(u, v, w))
         u, v, w = vsolver.apply_viscosity_solution(u, v, w, vsys, result, cfg)
         visc_iters, visc_res = result.iterations, result.residual
+        visc_tol = result.tol
 
     # pressure projection (fluidsimulation.cpp:522-531)
     psys = psolver.build_pressure_system(
@@ -121,6 +124,7 @@ def _grid_update(state: SimState, liquid_phi, p2g_sums, dt: float,
         pressure_tolerance=pres.tol,
         viscosity_iterations=visc_iters,
         viscosity_residual=visc_res,
+        viscosity_tolerance=visc_tol,
         liquid_cells=fluid.sum(),
     )
     return new, saved, solver_diag
@@ -183,6 +187,7 @@ def step(state: SimState, dt: float, cfg: SimConfig, substep_idx=None):
         solid.center_phi)
     p2g_sums = pp.p2g_combine(sums, shape,
                               (cfg.u_shape, cfg.v_shape, cfg.w_shape))
+    del sums, table   # gigabytes at 256^3; nothing below reads them
 
     (u, v, w), (su, sv, sw), solver_diag = _grid_update(
         state, liquid_phi, p2g_sums, dt, cfg)
@@ -297,6 +302,7 @@ def advance(state: SimState, dt: float, cfg: SimConfig):
         diag.pressure_tolerance = d["pressure_tolerance"]
         diag.viscosity_iterations += d["viscosity_iterations"]
         diag.viscosity_residual = d["viscosity_residual"]
+        diag.viscosity_tolerance = d["viscosity_tolerance"]
         diag.max_velocity = max(diag.max_velocity, float(maxvel))
         diag.liquid_cells = d["liquid_cells"]
         for k, v in counts.items():
@@ -306,6 +312,7 @@ def advance(state: SimState, dt: float, cfg: SimConfig):
     diag.pressure_residual = float(diag.pressure_residual)
     diag.pressure_tolerance = float(diag.pressure_tolerance)
     diag.viscosity_residual = float(diag.viscosity_residual)
+    diag.viscosity_tolerance = float(diag.viscosity_tolerance)
     diag.liquid_cells = int(diag.liquid_cells)
     for k, v in counts.items():
         setattr(diag, k, int(sum(int(o) for o in v)))

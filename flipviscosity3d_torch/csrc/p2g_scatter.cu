@@ -2,12 +2,14 @@
 // slot table, from particles sorted by tile-major home-cell key.
 //
 // Replaces flipviscosity3d_tpu/ops/pallas_particles.py::scatter_p2g_table
-// (bodies _p2g_chunk_values and _table_chunk_values), the sorted-stream
-// form (inkernel_rank=False, fold_sums=False).
+// (bodies _p2g_chunk_values, _p2g_chunk_values_folded and
+// _table_chunk_values), the sorted-stream form (inkernel_rank=False), with
+// fold_sums False (row stride 108) and True (row stride 112).
 //
-// Output per cell (standard i-major layout):
+// Output per cell (standard i-major layout), a row of kStride floats:
 //   sums[cell, l]      l < 54: sum of Wyvill weights of window face l
 //   sums[cell, 54 + l]         sum of weight * velocity component
+//   sums[cell, 108..kStride)   zero (the K-folded form's pad lanes)
 //   table[cell, r, :]  (px, py, pz, 1) of the particle of in-cell rank r < cap,
 //                      zero for an empty slot
 // with lane l = comp*18 + oidx over the 2x3x3 face window of each MAC
@@ -25,6 +27,14 @@
 // and empty cells are zero-filled by the same write. The weight expression
 // is _p2g_chunk_values' own, operation by operation (the library is built
 // with -fmad=false).
+//
+// The K-folded form (I, J, K*112) of the TPU kernel is a second kernel body
+// there (the one-hot splits so that the MXU result is already the folded
+// block). Here the sums are accumulated the same way in both forms and the
+// fold is only where a cell's row is written: cell * 112 in place of
+// cell * 108, with the 4 pad lanes written as zero (the output is not
+// zero-initialised). A 448 B row starts on a 32 B sector, a 432 B row does
+// so only on every other cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,6 +51,7 @@ using flip3d::wyvill;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;          // warps (cells) per block
 constexpr int kSlotsPerLane = 4;   // cap <= 32: cap*4 <= 128 table values
+constexpr int kLanes = 108;        // sums per cell
 
 __device__ __forceinline__ int lower_bound(const int* __restrict__ key, int n,
                                            int v) {
@@ -55,6 +66,7 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ key, int n,
   return lo;
 }
 
+template <int kStride>
 __global__ void p2g_scatter_kernel(const float* __restrict__ pos,
                                    const float* __restrict__ vel,
                                    const int* __restrict__ key,
@@ -121,13 +133,14 @@ __global__ void p2g_scatter_kernel(const float* __restrict__ pos,
     }
   }
 
-  float* out = sums + cell * 108;
+  float* out = sums + cell * kStride;
   out[lane] = w0;
   out[54 + lane] = wv0;
   if (has2) {
     out[lane + 32] = w1;
     out[54 + lane + 32] = wv1;
   }
+  if (lane < kStride - kLanes) out[kLanes + lane] = 0.f;
   float* tout = table + cell * (int64_t)cap * 4;
 #pragma unroll
   for (int s = 0; s < kSlotsPerLane; ++s) {
@@ -142,10 +155,15 @@ extern "C" int flip3d_p2g_scatter(const float* pos, const float* vel,
                                   const int* key, const int* rank, int n,
                                   int I, int J, int K, int cap, float dx,
                                   float c1, float c2, float c3, float r2,
-                                  float* sums, float* table, void* stream) {
+                                  int sum_stride, float* sums, float* table,
+                                  void* stream) {
   const int64_t n_cells = (int64_t)I * J * K;
   const unsigned blocks = (unsigned)((n_cells + kWarps - 1) / kWarps);
-  p2g_scatter_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
+  decltype(&p2g_scatter_kernel<108>) kernel = nullptr;
+  if (sum_stride == 108) kernel = p2g_scatter_kernel<108>;
+  if (sum_stride == 112) kernel = p2g_scatter_kernel<112>;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
       pos, vel, key, rank, n, I, J, K, cap, dx, c1, c2, c3, r2, sums, table);
   return (int)cudaGetLastError();
 }

@@ -4,14 +4,16 @@
 //
 // Replaces flipviscosity3d_tpu/ops/pallas_particles.py::scatter_p2g_table
 // with inkernel_rank=True (bodies _p2g_chunk_values, _table_chunk_values and
-// _rank_from_accumulator), the stale pass A's scatter.
+// _rank_from_accumulator), the stale pass A's scatter, with fold_sums False
+// (row stride 108) and True (row stride 112, _p2g_chunk_values_folded).
 //
 // Input: particles in their current order, cut into chunks of 512; a
 // particle takes part iff covered[q] (its (chunk, home tile) incidence lies
 // in the visit plan); the plan's CSR lists, per tile, the ascending ids of
 // the chunks that touch it. Output per cell (standard i-major layout), over
 // covered particles only:
-//   sums[cell, l], sums[cell, 54 + l]  as p2g_scatter.cu
+//   sums[cell, l], sums[cell, 54 + l]  as p2g_scatter.cu, a row of kStride
+//                      floats whose lanes 108..kStride are zero
 //   table[cell, r, :]  (px, py, pz, 1) of the covered particle whose rank in
 //                      stream order among the cell's covered particles is
 //                      r < cap; zero for an empty slot
@@ -33,7 +35,11 @@
 // rank is that count before it: deterministic and JAX's stream-order rank,
 // with no atomics. A particle of rank < cap writes its slot; the empty slots
 // are zeroed at the end. Each cell's sums are added in stream order, by one
-// warp, so the result does not vary from run to run.
+// warp, so the result does not vary from run to run. The K-folded form
+// differs only in the last loop, which writes the tile's sums out: the
+// shared-memory rows stay 108 wide (112 would not fit a block's 227 KB), the
+// rows in device memory are kStride apart and their pad lanes are written
+// as zero.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +63,7 @@ constexpr size_t kSmemBytes =
     + sizeof(int) * kStage              // staged local cell id, -1 if absent
     + sizeof(float) * 6 * kStage;       // staged px, py, pz, vx, vy, vz
 
+template <int kStride>
 __global__ void __launch_bounds__(kThreads, 1) p2g_scatter_stale_kernel(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const int* __restrict__ key, const unsigned char* __restrict__ covered,
@@ -144,12 +151,12 @@ __global__ void __launch_bounds__(kThreads, 1) p2g_scatter_stale_kernel(
     }
   }
 
-  for (int e = tid; e < kCells * kLanes; e += kThreads) {
-    const int c = e / kLanes, l = e - c * kLanes;
+  for (int e = tid; e < kCells * kStride; e += kThreads) {
+    const int c = e / kStride, l = e - c * kStride;
     const int64_t cell =
         ((int64_t)(ti * 8 + (c >> 6)) * J + (tj * 8 + ((c >> 3) & 7))) * K +
         tk * 8 + (c & 7);
-    sums[cell * kLanes + l] = s_sums[e];
+    sums[cell * kStride + l] = l < kLanes ? s_sums[c * kLanes + l] : 0.f;
   }
   const int c = warp * 32 + lane;
   const int64_t cell =
@@ -167,15 +174,17 @@ extern "C" int flip3d_p2g_scatter_stale(
     const float* pos, const float* vel, const int* key,
     const unsigned char* covered, int n, const int* tile_ptr,
     const int* tile_chunks, int I, int J, int K, int cap, float dx, float c1,
-    float c2, float c3, float r2, float* sums, float* table, int* counts,
-    void* stream) {
+    float c2, float c3, float r2, int sum_stride, float* sums, float* table,
+    int* counts, void* stream) {
+  decltype(&p2g_scatter_stale_kernel<108>) kernel = nullptr;
+  if (sum_stride == 108) kernel = p2g_scatter_stale_kernel<108>;
+  if (sum_stride == 112) kernel = p2g_scatter_stale_kernel<112>;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      p2g_scatter_stale_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)(((int64_t)I * J * K) / kCells);
-  p2g_scatter_stale_kernel<<<blocks, kThreads, kSmemBytes,
-                             (cudaStream_t)stream>>>(
+  kernel<<<blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       pos, vel, key, covered, n, tile_ptr, tile_chunks, I, J, K, cap, dx, c1,
       c2, c3, r2, sums, table, counts);
   return (int)cudaGetLastError();

@@ -1,7 +1,8 @@
 """Static shifted-slice primitives for stencil and staggered-grid transfers.
 
-The same two operations as the JAX package's ops/grids.py, on tensors with
-any number of leading batch axes: the last three axes are spatial.
+The same two adjoint operations as the JAX package's ops/grids.py.
+shifted_read takes tensors with any number of leading batch axes: the last
+three axes are spatial.
 """
 
 from __future__ import annotations
@@ -27,6 +28,22 @@ def shifted_read(src, offset, out_shape, fill=0.0):
         src_sl.append(slice(lo + o, hi + o))
     if all(s.stop > s.start for s in dst_sl):
         out[(...,) + tuple(dst_sl)] = src[(...,) + tuple(src_sl)]
+    return out
+
+
+def shifted_add(target, values, offset):
+    """target[c + offset] += values[c] for in-range c + offset (the adjoint
+    of shifted_read), on 3D tensors; returns a new tensor, as the JAX
+    function does."""
+    out = target.clone()
+    dst_sl, src_sl = [], []
+    for ax in range(3):
+        o = int(offset[ax])
+        lo = max(0, o)
+        hi = max(min(target.shape[ax], values.shape[ax] + o), lo)
+        dst_sl.append(slice(lo, hi))
+        src_sl.append(slice(lo - o, hi - o))
+    out[tuple(dst_sl)] += values[tuple(src_sl)]
     return out
 
 

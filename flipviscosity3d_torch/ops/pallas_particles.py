@@ -27,6 +27,11 @@ ascending ids of the chunks that touch it). `scatter_p2g_table_stale` then
 computes the in-cell ranks itself, in stream order, and `gather_rows8`
 reads the 8 node-SDF corners of each covered particle's home cell.
 
+At >= 2^24 cells (256^3) both scatters write their sums K-folded, as the
+JAX package does: (I, J, K*SUML) with cell (i, j, k)'s lane f at
+k*SUML + f and lanes 108..111 of each cell zero; `p2g_combine` then works
+through the sums in i-slabs.
+
 Every kernel wrapper takes the plain PyTorch version for CPU tensors and
 launches its CUDA kernel (csrc/*.cu) for CUDA tensors.
 """
@@ -46,6 +51,8 @@ TILE = (8, 8, 8)
 W = TILE[0] * TILE[1] * TILE[2]    # cells per tile
 C = 512                             # particles per chunk of a visit plan
 N_P2G = 108                         # 54 weight lanes + 54 weight*velocity
+SUML = 112                          # lanes per cell of the K-folded sums
+FOLD_CELLS = 1 << 24                # cells from which the sums are folded
 FAR = 1.0e8                         # empty-slot position sentinel
 MAX_CAP = 32                        # slot table capacity the kernels hold
 _IMAX = torch.iinfo(torch.int32).max   # pad key / empty extraction slot
@@ -56,6 +63,12 @@ def check_grid(grid_shape) -> None:
         raise ValueError(
             f"the particle engine needs grid dims divisible by {TILE}; "
             f"got {tuple(grid_shape)}")
+
+
+def large_grid(grid_shape) -> bool:
+    """The JAX package's auto rule for the large-scene forms (K-folded
+    sums, slabbed combine, split gather): at least 2^24 cells."""
+    return grid_shape[0] * grid_shape[1] * grid_shape[2] >= FOLD_CELLS
 
 
 def tile_counts(grid_shape):
@@ -287,50 +300,79 @@ def wyvill_constants(dx):
 # K1: P2G sums + liquid-SDF slot table
 # ---------------------------------------------------------------------------
 
-def scatter_p2g_table_ref(pos_s, vel_s, key_s, rank, grid_shape, dx, cap):
-    """Plain version of scatter_p2g_table (index_add over cells)."""
+def _fold(sums4):
+    """(I,J,K,108) sums -> the K-folded (I, J, K*SUML) form, pads zero."""
+    ni, nj, nk, _ = sums4.shape
+    padded = torch.nn.functional.pad(sums4, (0, SUML - N_P2G))
+    return padded.reshape(ni, nj, nk * SUML)
+
+
+def scatter_p2g_table_ref(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
+                          fold_sums=None, slabs: int = 1):
+    """Plain version of scatter_p2g_table (index_add over cells). `slabs`
+    cuts the stream into that many runs of particles, added one after the
+    other into the same sums and table, so that the (N, 108) values need not
+    exist at once: the same result for a large stream in less memory."""
+    if fold_sums is None:
+        fold_sums = large_grid(grid_shape)
     dev = pos_s.device
     n_cells = grid_shape[0] * grid_shape[1] * grid_shape[2]
-    gi, gj, gk = decode_key(key_s.long(), grid_shape)
-    g = [c.to(torch.float32)[:, None] for c in (gi, gj, gk)]
     lanes = [p2g_abs_offset(l // 18, l % 18) for l in range(54)]
     comp = torch.tensor([l // 18 for l in range(54)], device=dev)
     a = torch.tensor(lanes, dtype=torch.float32, device=dev)      # (54, 3)
     s = torch.tensor([[0.0 if c == ax else 0.5 for ax in range(3)]
                       for c in (l // 18 for l in range(54))],
                      dtype=torch.float32, device=dev)
-    f = [(g[ax] + a[:, ax]) * dx - (pos_s[:, ax:ax + 1] - s[:, ax] * dx)
-         for ax in range(3)]
-    d2 = f[0] * f[0] + f[1] * f[1] + f[2] * f[2]
     c1, c2, c3, r2 = wyvill_constants(dx)
-    wgt = 1.0 - c1 * d2 * d2 * d2 + c2 * d2 * d2 - c3 * d2
-    wgt = torch.where(d2 < r2, wgt, torch.zeros_like(wgt))
-    vsel = vel_s[:, comp]
-    vals = torch.cat([wgt, wgt * vsel], dim=1)
-    std = (gi * grid_shape[1] + gj) * grid_shape[2] + gk
     sums = torch.zeros((n_cells, N_P2G), dtype=torch.float32, device=dev)
-    sums.index_add_(0, std, vals)
     table = torch.zeros((n_cells * cap, 4), dtype=torch.float32, device=dev)
-    keep = rank < cap
-    slot_vals = torch.cat(
-        [pos_s, torch.ones_like(pos_s[:, :1])], dim=1)[keep]
-    table[std[keep] * cap + rank[keep].long()] = slot_vals
-    return (sums.reshape(*grid_shape, N_P2G),
+    per_slab = -(-max(pos_s.shape[0], 1) // slabs)
+    for pos, vel, key, rk in zip(*(t.split(per_slab)
+                                   for t in (pos_s, vel_s, key_s, rank))):
+        gi, gj, gk = decode_key(key.long(), grid_shape)
+        g = [c.to(torch.float32)[:, None] for c in (gi, gj, gk)]
+        f = [(g[ax] + a[:, ax]) * dx - (pos[:, ax:ax + 1] - s[:, ax] * dx)
+             for ax in range(3)]
+        d2 = f[0] * f[0] + f[1] * f[1] + f[2] * f[2]
+        wgt = 1.0 - c1 * d2 * d2 * d2 + c2 * d2 * d2 - c3 * d2
+        wgt = torch.where(d2 < r2, wgt, torch.zeros_like(wgt))
+        std = (gi * grid_shape[1] + gj) * grid_shape[2] + gk
+        sums.index_add_(0, std, torch.cat([wgt, wgt * vel[:, comp]], dim=1))
+        keep = rk < cap
+        table[std[keep] * cap + rk[keep].long()] = torch.cat(
+            [pos, torch.ones_like(pos[:, :1])], dim=1)[keep]
+    sums = sums.reshape(*grid_shape, N_P2G)
+    return (_fold(sums) if fold_sums else sums,
             table.reshape(*grid_shape, cap, 4))
 
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_SCATTER_ARGS = (_P,) * 4 + (_I,) * 5 + (_F,) * 5 + (_P,) * 2 + (_P,)
+_SCATTER_ARGS = (_P,) * 4 + (_I,) * 5 + (_F,) * 5 + (_I,) + (_P,) * 2 + (_P,)
 
 
-def scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap):
+def _empty_sums(grid_shape, fold_sums, device):
+    """The scatter kernels' sums output, not initialised: (I,J,K,108), or
+    K-folded (I, J, K*SUML) -> (tensor, floats per cell row)."""
+    ni, nj, nk = grid_shape
+    shape = (ni, nj, nk * SUML) if fold_sums else (ni, nj, nk, N_P2G)
+    return (torch.empty(shape, dtype=torch.float32, device=device),
+            SUML if fold_sums else N_P2G)
+
+
+def scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
+                      fold_sums=None):
     """Per-cell P2G sums and liquid-SDF slot table of a tile-key-sorted
-    stream -> (sums (I,J,K,108) f32, table (I,J,K,cap,4) f32). Particles of
-    rank >= cap are left out of the table only."""
+    stream -> (sums f32, table (I,J,K,cap,4) f32). Particles of rank >= cap
+    are left out of the table only. sums is (I,J,K,108), or, with
+    fold_sums (None: at >= 2^24 cells), K-folded (I, J, K*SUML): the same
+    kernel with a row stride of SUML floats and the pad lanes written as
+    zero, counted as scatter_p2g_table_folded."""
     check_grid(grid_shape)
+    if fold_sums is None:
+        fold_sums = large_grid(grid_shape)
     if _build.on_cpu(pos_s, "scatter_p2g_table"):
         return scatter_p2g_table_ref(pos_s, vel_s, key_s, rank, grid_shape,
-                                     dx, cap)
+                                     dx, cap, fold_sums)
     n = pos_s.shape[0]
     _build.require(pos_s, "pos_s", torch.float32, (n, 3))
     _build.require(vel_s, "vel_s", torch.float32, (n, 3))
@@ -339,8 +381,7 @@ def scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap):
     if not 1 <= cap <= MAX_CAP:
         raise ValueError(f"scatter_p2g_table: cap must be in [1, {MAX_CAP}]")
     ni, nj, nk = grid_shape
-    sums = torch.empty((ni, nj, nk, N_P2G), dtype=torch.float32,
-                       device=pos_s.device)
+    sums, stride = _empty_sums(grid_shape, fold_sums, pos_s.device)
     table = torch.empty((ni, nj, nk, cap, 4), dtype=torch.float32,
                         device=pos_s.device)
     c1, c2, c3, r2 = wyvill_constants(dx)
@@ -348,12 +389,21 @@ def scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap):
         "flip3d_p2g_scatter", _SCATTER_ARGS,
         pos_s.data_ptr(), vel_s.data_ptr(), key_s.data_ptr(),
         rank.data_ptr(), n, ni, nj, nk, cap, _f32(dx), c1, c2, c3, r2,
-        sums.data_ptr(), table.data_ptr())
-    scatter_p2g_table.launches += 1
+        stride, sums.data_ptr(), table.data_ptr())
+    (scatter_p2g_table_folded if fold_sums
+     else scatter_p2g_table).launches += 1
     return sums, table
 
 
+def scatter_p2g_table_folded(pos_s, vel_s, key_s, rank, grid_shape, dx, cap):
+    """scatter_p2g_table with the fold forced, at any grid size; its
+    `launches` counts every folded launch of that kernel."""
+    return scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
+                             fold_sums=True)
+
+
 scatter_p2g_table.launches = 0
+scatter_p2g_table_folded.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -367,15 +417,17 @@ def table_rank_overflow(counts, cap):
 
 
 def scatter_p2g_table_stale_ref(pos, vel, key, covered, grid_shape, dx,
-                                cap):
+                                cap, fold_sums=None, slabs: int = 1):
     """Plain version of scatter_p2g_table_stale: the covered particles' ranks
-    by a stable sort of their keys, then scatter_p2g_table_ref."""
+    by a stable sort of their keys, then scatter_p2g_table_ref (in `slabs`
+    runs of particles)."""
     key_c = key[covered]
     key_s, perm = torch.sort(key_c, stable=True)
     rank = torch.empty_like(key_s, dtype=torch.int32)
     rank[perm] = _run_rank(key_s)
     sums, table = scatter_p2g_table_ref(pos[covered], vel[covered], key_c,
-                                        rank, grid_shape, dx, cap)
+                                        rank, grid_shape, dx, cap, fold_sums,
+                                        slabs)
     gi, gj, gk = decode_key(key_c.long(), grid_shape)
     std = (gi * grid_shape[1] + gj) * grid_shape[2] + gk
     counts = torch.bincount(std, minlength=grid_shape[0] * grid_shape[1]
@@ -384,22 +436,25 @@ def scatter_p2g_table_stale_ref(pos, vel, key, covered, grid_shape, dx,
 
 
 _STALE_ARGS = (_P,) * 4 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_F,) * 5 + (
-    _P,) * 3 + (_P,)
+    _I,) + (_P,) * 3 + (_P,)
 
 
 def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
-                            cap):
+                            cap, fold_sums=None):
     """scatter_p2g_table over a stream in any order, restricted to the
-    plan's covered particles -> (sums (I,J,K,108) f32, table (I,J,K,cap,4)
-    f32, counts (I,J,K) int32). A particle's rank is its position in stream
-    order among the covered particles of its cell; counts holds every
-    covered particle of the cell, ranks >= cap included. The inputs are the
-    stream as it is (the TPU's stale_payload rows have no counterpart: the
-    kernel decodes the keys itself)."""
+    plan's covered particles -> (sums f32 as scatter_p2g_table's, folded
+    under the same rule, table (I,J,K,cap,4) f32, counts (I,J,K) int32). A
+    particle's rank is its position in stream order among the covered
+    particles of its cell; counts holds every covered particle of the cell,
+    ranks >= cap included. The inputs are the stream as it is (the TPU's
+    stale_payload rows have no counterpart: the kernel decodes the keys
+    itself). Folded launches count as scatter_p2g_table_stale_folded."""
     check_grid(grid_shape)
+    if fold_sums is None:
+        fold_sums = large_grid(grid_shape)
     if _build.on_cpu(pos, "scatter_p2g_table_stale"):
         return scatter_p2g_table_stale_ref(pos, vel, key, plan.covered,
-                                           grid_shape, dx, cap)
+                                           grid_shape, dx, cap, fold_sums)
     n = pos.shape[0]
     ni, nj, nk = grid_shape
     n_tiles = (ni * nj * nk) // W
@@ -413,7 +468,7 @@ def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
         raise ValueError(
             f"scatter_p2g_table_stale: cap must be in [1, {MAX_CAP}]")
     dev = pos.device
-    sums = torch.empty((ni, nj, nk, N_P2G), dtype=torch.float32, device=dev)
+    sums, stride = _empty_sums(grid_shape, fold_sums, dev)
     table = torch.empty((ni, nj, nk, cap, 4), dtype=torch.float32,
                         device=dev)
     counts = torch.empty((ni, nj, nk), dtype=torch.int32, device=dev)
@@ -423,12 +478,22 @@ def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
         pos.data_ptr(), vel.data_ptr(), key.data_ptr(),
         plan.covered.data_ptr(), n, plan.tile_ptr.data_ptr(),
         plan.tile_chunks.data_ptr(), ni, nj, nk, cap, _f32(dx), c1, c2, c3,
-        r2, sums.data_ptr(), table.data_ptr(), counts.data_ptr())
-    scatter_p2g_table_stale.launches += 1
+        r2, stride, sums.data_ptr(), table.data_ptr(), counts.data_ptr())
+    (scatter_p2g_table_stale_folded if fold_sums
+     else scatter_p2g_table_stale).launches += 1
     return sums, table, counts
 
 
+def scatter_p2g_table_stale_folded(pos, vel, key, plan: ScatterPlan,
+                                   grid_shape, dx, cap):
+    """scatter_p2g_table_stale with the fold forced, at any grid size; its
+    `launches` counts every folded launch of that kernel."""
+    return scatter_p2g_table_stale(pos, vel, key, plan, grid_shape, dx, cap,
+                                   fold_sums=True)
+
+
 scatter_p2g_table_stale.launches = 0
+scatter_p2g_table_stale_folded.launches = 0
 
 
 def table_fields(table, cap):
@@ -441,15 +506,14 @@ def table_fields(table, cap):
     return tuple(torch.where(occ, t[..., f], far) for f in range(3))
 
 
-def p2g_combine(sums, grid_shape, face_shapes):
-    """Per-cell P2G sums -> [(val_sum, w_sum)] per component: face
-    f = cell + offset receives the cell's lane."""
-    lanes = sums.reshape(-1, N_P2G).t().reshape(N_P2G, *grid_shape)
+def _combine_cells(lanes, face_shapes):
+    """The shifted accumulation of p2g_combine on one block of cells;
+    `lanes` is lane-leading, (>= 108, i, J, K)."""
     acc = []
     for comp in range(3):
         fs = face_shapes[comp]
-        vs = torch.zeros(fs, dtype=torch.float32, device=sums.device)
-        ws = torch.zeros(fs, dtype=torch.float32, device=sums.device)
+        vs = torch.zeros(fs, dtype=torch.float32, device=lanes.device)
+        ws = torch.zeros(fs, dtype=torch.float32, device=lanes.device)
         for oidx in range(18):
             neg = tuple(-v for v in p2g_abs_offset(comp, oidx))
             lane = comp * 18 + oidx
@@ -457,6 +521,47 @@ def p2g_combine(sums, grid_shape, face_shapes):
             vs = vs + shifted_read(lanes[54 + lane], neg, fs)
         acc.append((vs, ws))
     return acc
+
+
+def p2g_combine(sums, grid_shape, face_shapes, i_slabs=None):
+    """Per-cell P2G sums -> [(val_sum, w_sum)] per component: face
+    f = cell + offset receives the cell's lane. `sums` is (I,J,K,108) or
+    K-folded (I, J, K*108) or (I, J, K*SUML).
+
+    i_slabs == 1 reads each lane through a strided view of the whole sums.
+    i_slabs > 1 (None: 8 at >= 2^24 cells when I % 8 == 0, else 1) is the
+    JAX package's slabbed form: per slab of I / i_slabs cell rows, a window
+    of two more rows (the offsets reach +-1) is copied lane-leading, combined,
+    and the face rows the slab owns are pasted; the u grid's row on a seam
+    is complete in both neighbours' windows and pasted twice. Only one
+    window's lane-leading copy is alive at a time, and the result is bit
+    for bit that of i_slabs == 1."""
+    isz, nj, nk = grid_shape
+    cells = sums.reshape(isz, nj, nk, -1)
+    if i_slabs is None:
+        i_slabs = 8 if (large_grid(grid_shape) and isz % 8 == 0) else 1
+    if i_slabs == 1:
+        return _combine_cells(cells.permute(3, 0, 1, 2), face_shapes)
+
+    bw = isz // i_slabs
+    win = bw + 2
+    local_fs = ((win + 1,) + tuple(face_shapes[0][1:]),
+                (win,) + tuple(face_shapes[1][1:]),
+                (win,) + tuple(face_shapes[2][1:]))
+    out = [tuple(torch.zeros(fs, dtype=torch.float32, device=sums.device)
+                 for _ in range(2)) for fs in face_shapes]
+    for s in range(i_slabs):
+        i0 = s * bw
+        start = min(max(i0 - 1, 0), isz - win)
+        off = i0 - start   # 0 on the first slab, 2 on the last, else 1
+        lanes = cells[start:start + win, ..., :N_P2G].permute(
+            3, 0, 1, 2).contiguous()
+        part = _combine_cells(lanes, local_fs)
+        for comp in range(3):
+            rows = bw + (1 if comp == 0 else 0)
+            for dst, src in zip(out[comp], part[comp]):
+                dst[i0:i0 + rows] = src[off:off + rows]
+    return out
 
 
 # ---------------------------------------------------------------------------

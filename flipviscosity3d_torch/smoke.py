@@ -1,4 +1,5 @@
-"""The bench scene, the main paths, and the kernel-vs-plain checks.
+"""The bench scene, the main paths, the CLI's paths and the
+kernel-vs-plain checks.
 
 `run_main_path(device, res, frames, dt, lift, **overrides)` builds the
 scene that bench.py runs (a pool filling the bottom ~27% of the box,
@@ -11,21 +12,40 @@ PyTorch version on the same inputs, times both and the one PyTorch call
 that computes the same function where there is one, and states each
 kernel's bound. chip_smoke.py runs both at 128^3 on the card; the CPU tests
 run the main paths at 16^3. `profile_frames(res, frames)` traces frames of
-the scene on the card with torch.profiler (where the time goes).
+the scene on the card with torch.profiler (where the time goes);
+`profile_sim` does so for a simulation that is already set up.
+
+`run_scene_path` drives the same scene through the scene CLI
+(cli.main) from mesh files and a scene file that it writes, as a user
+would: chip_smoke.py runs it at 256^3, where the scatters fold their sums
+(the "_folded" kernel records) and the face combine runs in slabs, and
+then runs `check_kernels` again on that run's final state, so that every
+kernel is held against its plain version at the 256^3 shapes too (the
+plain scatters in slabs of particles, to fit the card). `run_cli64`
+drives the CLI at its default resolution with exports, checkpoints and a
+resumed second run.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import statistics
+import sys
 import time
 
+import numpy as np
 import torch
 
+from . import cli
 from .config import SimConfig
 from .core.sim import FluidSimulation
 from .core.step import _clamp_bounds
+from .io import primitives
+from .io import trianglemesh as tm
 from .io.trianglemesh import box_mesh
 from .ops import pallas_mg as pm
 from .ops import pallas_particles as pp
@@ -47,6 +67,14 @@ KERNELS = (
      " _rank_from_accumulator :658)"),
     (pp.gather_rows8, "flipviscosity3d_torch/csrc/gather_rows8.cu",
      "flipviscosity3d_tpu/ops/pallas_particles.py:1265"),
+    (pp.scatter_p2g_table_folded,
+     "flipviscosity3d_torch/csrc/p2g_scatter.cu",
+     "flipviscosity3d_tpu/ops/pallas_particles.py:714 (fold_sums=True,"
+     " _p2g_chunk_values_folded :560)"),
+    (pp.scatter_p2g_table_stale_folded,
+     "flipviscosity3d_torch/csrc/p2g_scatter_stale.cu",
+     "flipviscosity3d_tpu/ops/pallas_particles.py:714 (inkernel_rank=True,"
+     " fold_sums=True, _p2g_chunk_values_folded :560)"),
 )
 DT = 0.01
 STALE_LIFT = 0.43
@@ -79,10 +107,19 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn, _, _ in KERNELS}
 
 
+def _scatter_names(cfg: SimConfig):
+    """(the scatter a substep under `cfg` launches, the one it must not):
+    at >= 2^24 cells the folded form, below it the unfolded."""
+    name = ("scatter_p2g_table" if cfg.pallas_pass_a == "sort"
+            else "scatter_p2g_table_stale")
+    if pp.large_grid(cfg.grid_shape):
+        return name + "_folded", name
+    return name, name + "_folded"
+
+
 def path_kernels(cfg: SimConfig) -> list:
     """The kernels a substep under `cfg` launches on the card."""
-    names = ["scatter_p2g_table" if cfg.pallas_pass_a == "sort"
-             else "scatter_p2g_table_stale", "gather_mac"]
+    names = [_scatter_names(cfg)[0], "gather_mac"]
     if "multigrid" in (cfg.pressure_preconditioner,
                        cfg.viscosity_preconditioner):
         names += ["mg_down", "mg_up"]
@@ -91,15 +128,20 @@ def path_kernels(cfg: SimConfig) -> list:
     return names
 
 
+def pool_mesh(res: int, lift: float = 0.0):
+    """The bench scene's pool: a box filling the bottom ~27% of the unit
+    domain, 2.5 cells off the walls, moved up by `lift`."""
+    lo = 2.5 / res
+    return box_mesh((lo, lo + lift, lo), (1.0 - lo, 0.285 + lift, 1.0 - lo))
+
+
 def bench_scene(device, res: int, lift: float = 0.0,
                 **overrides) -> FluidSimulation:
     """bench.py's scene (bench.py:35-100) at res^3, the pool's box moved up
     by `lift`, with config `overrides`."""
     sim = FluidSimulation(device)
     sim.initialize(res, res, res, 1.0 / res, bucket_capacity=16, **overrides)
-    lo = 2.5 / res
-    sim.add_liquid(box_mesh((lo, lo + lift, lo),
-                            (1.0 - lo, 0.285 + lift, 1.0 - lo)))
+    sim.add_liquid(pool_mesh(res, lift))
     sim.set_viscosity(5.0)
     sim.set_gravity(0.0, -9.81, 0.0)
     return sim
@@ -118,8 +160,11 @@ def run_main_path(device, res: int, frames: int, dt: float = DT,
     the last. Returns a dict of results; `failures` lists the checks that
     did not hold."""
     dev = torch.device(device)
+    t_setup = time.perf_counter()
     sim = bench_scene(dev, res, lift, **overrides)
     n = int(sim.state.pos.shape[0])
+    _sync(dev)
+    setup_s = time.perf_counter() - t_setup
     log(json.dumps({"scene": f"{res}^3", "lift": lift, "particles": n,
                     "device": str(dev), "dt": dt, **overrides}))
     if dev.type == "cuda":
@@ -135,14 +180,22 @@ def run_main_path(device, res: int, frames: int, dt: float = DT,
         log(json.dumps({"frame": frame, "warm": frame == 0, **d.as_dict()}))
     _sync(dev)
     wall = time.perf_counter() - t0
-    launches = launch_counts()
-    substeps = sum(d.substeps for d in diags[1:])
+    return _path_result(sim, diags, diags[1:], wall, launch_counts(), dev,
+                        setup_s)
+
+
+def _path_result(sim, diags, timed, wall, launches, dev, setup_s) -> dict:
+    """What a path reports: `diags` every frame's diagnostics, `timed` those
+    of the frames that `wall` seconds cover, `launches` the launch counts
+    read just after the path. `failures` lists the checks that did not
+    hold."""
+    substeps = sum(d.substeps for d in timed)
     result = {
-        "particles": n,
+        "particles": int(sim.state.pos.shape[0]),
         "frames": [d.as_dict() for d in diags],
-        "timed_frames": frames,
+        "timed_frames": len(timed),
         "substeps": substeps,
-        "stale_substeps": sum(d.stale_substeps for d in diags[1:]),
+        "stale_substeps": sum(d.stale_substeps for d in timed),
         "bucket_overflow": [d.bucket_overflow for d in diags],
         "wall_s": wall,
         "substeps_per_s": substeps / wall,
@@ -150,6 +203,7 @@ def run_main_path(device, res: int, frames: int, dt: float = DT,
                        if dev.type == "cuda" else None),
         "launches": launches,
         "path_kernels": path_kernels(sim.cfg),
+        "setup_s": setup_s,
     }
     result["failures"] = _main_path_failures(sim, diags, result, dev)
     return result
@@ -165,16 +219,22 @@ def _main_path_failures(sim, diags, result, dev) -> list:
     elif not bool(((pos >= lo) & (pos <= hi)).all()):
         failures.append("particles outside the clamp bounds")
     for i, d in enumerate(diags):
-        if not d.pressure_residual <= d.pressure_tolerance:
-            failures.append(
-                f"frame {i}: pressure residual {d.pressure_residual} above "
-                f"its tolerance {d.pressure_tolerance}")
+        for solve in ("pressure", "viscosity"):
+            res = getattr(d, solve + "_residual")
+            tol = getattr(d, solve + "_tolerance")
+            if not res <= tol:
+                failures.append(f"frame {i}: {solve} residual {res} above "
+                                f"its tolerance {tol}")
     if not any(d.viscosity_iterations > 0 for d in diags):
         failures.append("no frame ran the viscosity solve")
     if dev.type == "cuda":
+        launches = result["launches"]
         failures += [f"kernel {k} was never launched"
-                     for k in result["path_kernels"]
-                     if result["launches"][k] == 0]
+                     for k in result["path_kernels"] if launches[k] == 0]
+        other = _scatter_names(sim.cfg)[1]
+        if launches[other]:
+            failures.append(f"kernel {other} was launched {launches[other]} "
+                            "times on a path of the other sums layout")
     return failures
 
 
@@ -226,15 +286,22 @@ def _nbytes(*tensors) -> int:
 
 def compare(name, got, want, rtol, atol) -> dict:
     """max abs / rel error of got vs want and whether
-    |got - want| <= atol + rtol * |want| everywhere."""
-    got, want = got.float(), want.float()
-    err = (got - want).abs()
-    rel = err / want.abs().clamp(min=1e-30)
-    ok = bool((err <= atol + rtol * want.abs()).all()) and bool(
-        torch.isfinite(got).all())
-    return {"check": name, "max_abs_err": float(err.max()),
-            "max_rel_err": float(rel.max()), "rtol": rtol, "atol": atol,
-            "ok": ok}
+    |got - want| <= atol + rtol * |want| everywhere. Works through pieces of
+    at most 2^27 elements, so that gigabytes of sums need no temporaries of
+    their own size."""
+    max_abs = max_rel = 0.0
+    ok = True
+    pieces = max(1, -(-got.numel() // (1 << 27)))
+    for g, w in zip(got.reshape(-1).chunk(pieces),
+                    want.reshape(-1).chunk(pieces)):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        max_abs = max(max_abs, float(err.max()))
+        max_rel = max(max_rel, float((err / w.abs().clamp(min=1e-30)).max()))
+        ok = ok and bool((err <= atol + rtol * w.abs()).all()) and bool(
+            torch.isfinite(g).all())
+    return {"check": name, "max_abs_err": max_abs, "max_rel_err": max_rel,
+            "rtol": rtol, "atol": atol, "ok": ok}
 
 
 def _random_level(shape, gen, device):
@@ -283,15 +350,71 @@ def stale_orders(pos_s, cfg: SimConfig, gen) -> dict:
             for label, p in (("falling", fall), ("random steps", steps))}
 
 
-def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
+def _max_abs(t) -> float:
+    lo, hi = t.aminmax()
+    return max(-float(lo), float(hi))
+
+
+def _scatter_checks(label, kernel, plain, cfg: SimConfig, extra) -> tuple:
+    """One scatter in both layouts of its sums -> (the unfolded kernel's
+    checks, the folded kernel's). `kernel(fold)` and `plain(fold)` give
+    (sums, table[, counts]). Unfolded: the sums against the plain version's
+    at rtol 1e-5 and atol 1e-6 * max|sums|, table (and counts) exact, and
+    the checks `extra(kernel's, plain's)` adds. Folded: lanes 0..107 of each
+    cell, the table and the counts torch.equal to the unfolded kernel's, the
+    pad lanes exactly 0, the face combine in 8 slabs over the folded sums
+    torch.equal to the unslabbed one over the unfolded sums, and the sums
+    against the plain folded version at the same tolerance. At most two
+    kernel outputs and one plain output are alive at a time."""
+    shape = cfg.grid_shape
+    faces = (cfg.u_shape, cfg.v_shape, cfg.w_shape)
+    got = kernel(False)
+    want = plain(False)
+    checks = [compare(f"{label}sums", got[0], want[0], 1e-5,
+                      1e-6 * _max_abs(want[0])),
+              {"check": f"{label}table exact",
+               "ok": bool(torch.equal(got[1], want[1]))}]
+    checks += extra(got, want)
+    del want
+    folded = kernel(True)
+    fs = folded[0].reshape(*shape, pp.SUML)
+    slabbed = pp.p2g_combine(folded[0], shape, faces, i_slabs=8)
+    whole = pp.p2g_combine(got[0], shape, faces, i_slabs=1)
+    fchecks = [
+        {"check": f"{label}lanes 0..107 equal the unfolded kernel's",
+         "ok": bool(torch.equal(fs[..., :pp.N_P2G], got[0]))},
+        {"check": f"{label}pad lanes exactly 0",
+         "ok": bool((fs[..., pp.N_P2G:] == 0).all())},
+        {"check": f"{label}table and counts equal the unfolded kernel's",
+         "ok": all(bool(torch.equal(a, b))
+                   for a, b in zip(folded[1:], got[1:]))},
+        {"check": f"{label}p2g_combine in 8 slabs over the folded sums "
+                  "equals the unslabbed one over the unfolded sums",
+         "ok": all(bool(torch.equal(a, b)) for pa, pb in zip(slabbed, whole)
+                   for a, b in zip(pa, pb))},
+    ]
+    del got, slabbed, whole
+    want = plain(True)
+    fchecks.append(compare(f"{label}sums vs the plain folded version",
+                           folded[0], want[0], 1e-5,
+                           1e-6 * _max_abs(want[0])))
+    return checks, fchecks
+
+
+def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
+                  ref_slabs: int = 1) -> list:
     """Each kernel against its plain version on the card at the shapes the
-    main paths give it: K1 on the scene's sorted particles; K2 with two
+    main paths give it (the plain scatters in `ref_slabs` runs of particles:
+    one at 128^3, more where their values would not fit the card beside the
+    sums): K1 on the scene's sorted particles; K2 with two
     grids at the particles and one grid at midpoints (some outside the
     domain); K3/K4 on a pressure-sized (1,I,J,K) and a viscosity-sized
     (3,I+1,J+1,K+1) level with the bf16 operator, and a whole V-cycle on
     each; K5 and K6 through plans of cfg's budgets over the two
-    stale_orders of the sorted particles, timed on "falling". Returns one
-    record per kernel with its checks, the kernel's, the plain version's
+    stale_orders of the sorted particles, timed on "falling"; K1 and K5 in
+    both layouts of their sums, whichever the grid's size would choose
+    (_scatter_checks). Returns
+    one record per kernel with its checks, the kernel's, the plain version's
     and the library call's times, and its bound."""
     dev = state.pos.device
     gen = torch.Generator(device=dev)
@@ -300,25 +423,36 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
     n = state.pos.shape[0]
     n_cells = cfg.n_cells
     table_bytes = (4 * pp.N_P2G + 16 * cap) * n_cells
+    # the folded form also writes its pad lanes
+    folded_bytes = (4 * pp.SUML + 16 * cap) * n_cells
     records = {}
 
     # K1: P2G scatter + slot table
     vel = 0.5 * torch.randn((n, 3), generator=gen, device=dev)
     stream = pp.tiled_sort(state.pos, vel, dx, shape)
     args = (stream.pos, stream.vel, stream.key, stream.rank, shape, dx, cap)
-    ks, kt = pp.scatter_p2g_table(*args)
-    rs, rt = pp.scatter_p2g_table_ref(*args)
-    checks = [compare("sums", ks, rs, 1e-5, 1e-6 * float(rs.abs().max())),
-              {"check": "table exact", "ok": bool(torch.equal(kt, rt))}]
-    occupied_k = int(kt[..., 3].sum())
     overflow = int((stream.rank >= cap).sum())
-    checks.append({"check": "overflow", "kernel": n - occupied_k,
-                   "plain": overflow, "ok": n - occupied_k == overflow})
+
+    def k1(fold):
+        return pp.scatter_p2g_table(*args, fold_sums=fold)
+
+    def k1_plain(fold):
+        return pp.scatter_p2g_table_ref(*args, fold_sums=fold,
+                                        slabs=ref_slabs)
+
+    def k1_overflow(got, want):
+        occupied = int(got[1][..., 3].sum(dtype=torch.float64))
+        return [{"check": "overflow", "kernel": n - occupied,
+                 "plain": overflow, "ok": n - occupied == overflow}]
+
+    checks, fchecks = _scatter_checks("", k1, k1_plain, cfg, k1_overflow)
+    flops = _P2G_FLOPS_PER_FACE * 54 * n
     records["scatter_p2g_table"] = (
-        checks, lambda: pp.scatter_p2g_table(*args),
-        lambda: pp.scatter_p2g_table_ref(*args), None,
-        bound(_nbytes(*args[:4]) + table_bytes,
-              _P2G_FLOPS_PER_FACE * 54 * n))
+        checks, lambda: k1(False), lambda: k1_plain(False), None,
+        bound(_nbytes(*args[:4]) + table_bytes, flops))
+    records["scatter_p2g_table_folded"] = (
+        fchecks, lambda: k1(True), lambda: k1_plain(True), None,
+        bound(_nbytes(*args[:4]) + folded_bytes, flops))
 
     # K2: G2P gather, pass A (2 grids) and pass B (1 grid at midpoints)
     faces = (cfg.u_shape, cfg.v_shape, cfg.w_shape)
@@ -333,13 +467,26 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
     key_m = pp.key_of_position(mid, dx, shape)
     args_b = (mx, my, mz, key_m, gu[:1], gv[:1], gw[:1], dx, shape)
     outside = int(((mid < 0) | (mid >= shape[0] * dx)).any(dim=1).sum())
+    def split():
+        """Pass A's gather as the JAX package splits it at >= 2^24 cells:
+        one launch per grid."""
+        return torch.cat([pp.gather_mac(px, py, pz, stream.key, gu[g:g + 1],
+                                        gv[g:g + 1], gw[g:g + 1], dx, shape)
+                          for g in range(2)])
+
+    fused = pp.gather_mac(*args_a)
     checks = [
-        compare("n_grids=2 at particles", pp.gather_mac(*args_a),
+        compare("n_grids=2 at particles", fused,
                 pp.gather_mac_ref(*args_a), 1e-5, 1e-6),
         compare(f"n_grids=1 at midpoints ({outside} outside the domain)",
                 pp.gather_mac(*args_b), pp.gather_mac_ref(*args_b),
                 1e-5, 1e-6),
+        # why pallas_split_gather changes nothing in the port (config.py)
+        {"check": "two launches of one grid each equal the launch of two",
+         "ok": bool(torch.equal(split(), fused)),
+         "ms_two_launches": time_ms(split)},
     ]
+    del fused
     # 3 components x (9 for the fractions + per grid 18 faces x (3 weight
     # products + 2 to accumulate)), n_grids = 2
     records["gather_mac"] = (
@@ -399,31 +546,36 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
     corner_table = pp.gather_rows8_ref(
         every, torch.ones_like(every, dtype=torch.bool), phi,
         shape).t().contiguous()
-    checks5, checks6 = [], []
+    checks5, checks5f, checks6 = [], [], []
     for label, moved in stale_orders(stream.pos, cfg, gen).items():
         key5 = pp.key_of_position(moved, dx, shape)
         plan = pp.plan_pass_a(key5, shape, cfg.pallas_passa_budget,
                               cfg.pallas_passa_factor)
         covered = int(plan.covered.sum())
         args5 = (moved, stream.vel, key5, plan, shape, dx, cap)
-        ks, kt, kc = pp.scatter_p2g_table_stale(*args5)
         ref5 = (moved, stream.vel, key5, plan.covered, shape, dx, cap)
-        rs, rt, rc = pp.scatter_p2g_table_stale_ref(*ref5)
         full = label == "falling"
-        checks5 += [
-            {"check": f"{label}: coverage", "covered": covered,
-             "particles": n, "incidences": int(plan.tile_chunks.numel()),
-             "ok": covered == n if full else covered > 0},
-            compare(f"{label}: sums", ks, rs, 1e-5,
-                    1e-6 * float(rs.abs().max())),
-            {"check": f"{label}: table exact",
-             "ok": bool(torch.equal(kt, rt))},
-            {"check": f"{label}: counts exact",
-             "ok": bool(torch.equal(kc, rc)),
-             "max_count": int(kc.max()),
-             "rank_overflow": int(pp.table_rank_overflow(kc, cap))},
-        ]
-        del ks, kt, kc, rs, rt, rc
+
+        def k5(fold, a=args5):
+            return pp.scatter_p2g_table_stale(*a, fold_sums=fold)
+
+        def k5_plain(fold, a=ref5):
+            return pp.scatter_p2g_table_stale_ref(*a, fold_sums=fold,
+                                                  slabs=ref_slabs)
+
+        def k5_counts(got, want, covered=covered, plan=plan, full=full):
+            return [
+                {"check": f"{label}: counts exact",
+                 "ok": bool(torch.equal(got[2], want[2])),
+                 "max_count": int(got[2].max()),
+                 "rank_overflow": int(pp.table_rank_overflow(got[2], cap))},
+                {"check": f"{label}: coverage", "covered": covered,
+                 "particles": n, "incidences": int(plan.tile_chunks.numel()),
+                 "ok": covered == n if full else covered > 0}]
+
+        c5, c5f = _scatter_checks(f"{label}: ", k5, k5_plain, cfg, k5_counts)
+        checks5 += c5
+        checks5f += c5f
         cov6 = pp.plan_midpoint_visits(key5, cfg.pallas_midpoint_budget,
                                        cfg.pallas_midpoint_factor).covered
         args6 = (key5, cov6, phi, shape)
@@ -434,13 +586,15 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
              "particles": n, "ok": bool(cov6.all()) if full
              else bool(cov6.any())}]
         if full:   # bound to the loop's values of this input
+            in_bytes = _nbytes(moved, stream.vel, key5, plan.covered,
+                               plan.tile_ptr, plan.tile_chunks)
+            flops = _P2G_FLOPS_PER_FACE * 54 * covered
             records["scatter_p2g_table_stale"] = (
-                checks5, lambda a=args5: pp.scatter_p2g_table_stale(*a),
-                lambda a=ref5: pp.scatter_p2g_table_stale_ref(*a), None,
-                bound(_nbytes(moved, stream.vel, key5, plan.covered,
-                              plan.tile_ptr, plan.tile_chunks)
-                      + table_bytes + 4 * n_cells,
-                      _P2G_FLOPS_PER_FACE * 54 * covered))
+                checks5, lambda k=k5: k(False), lambda k=k5_plain: k(False),
+                None, bound(in_bytes + table_bytes + 4 * n_cells, flops))
+            records["scatter_p2g_table_stale_folded"] = (
+                checks5f, lambda k=k5: k(True), lambda k=k5_plain: k(True),
+                None, bound(in_bytes + folded_bytes + 4 * n_cells, flops))
             records["gather_rows8"] = (
                 checks6, lambda a=args6: pp.gather_rows8(*a),
                 lambda a=args6: pp.gather_rows8_ref(*a),
@@ -464,17 +618,164 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the CLI's paths
+# ---------------------------------------------------------------------------
+
+class _Tee(io.StringIO):
+    """Keeps what is written and passes it on to `stream`."""
+
+    def __init__(self, stream):
+        super().__init__()
+        self._stream = stream
+
+    def write(self, text):
+        self._stream.write(text)
+        return super().write(text)
+
+    def flush(self):
+        self._stream.flush()
+
+
+def run_cli(argv) -> tuple:
+    """cli.main(argv) in this process -> (its SceneRun, the JSON line of
+    each frame as a dict, the set-up seconds it printed)."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        run = cli.main(argv)
+    lines = tee.getvalue().splitlines()
+    frames = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    setup = [float(ln.split()[-2]) for ln in lines
+             if ln.startswith("initialized:")]
+    return run, frames, setup[0]
+
+
+def write_scene(workdir, name: str, boundary, liquid, **spec) -> str:
+    """Write the boundary and liquid meshes as PLY (save_ply) under
+    `workdir` and a scene file `name`.json that names them, with the other
+    scene keys `spec` -> the scene file's path. Exports and checkpoints go
+    to `workdir`/`name`."""
+    os.makedirs(workdir, exist_ok=True)
+    paths = {}
+    for part, mesh in (("boundary", boundary), ("liquid", liquid)):
+        paths[part] = os.path.join(workdir, f"{name}_{part}.ply")
+        tm.save_ply(paths[part], mesh)
+    scene = os.path.join(workdir, name + ".json")
+    with open(scene, "w") as f:
+        json.dump({"boundary_mesh": paths["boundary"],
+                   "liquid_meshes": [paths["liquid"]],
+                   "output_dir": os.path.join(workdir, name), **spec}, f,
+                  indent=1)
+    return scene
+
+
+def run_scene_path(device, workdir, name: str, res: int, frames: int,
+                   dt: float = DT, lift: float = 0.0, **overrides) -> dict:
+    """The bench scene (lifted by `lift`, config `overrides`) through the
+    scene CLI: the pool and a container one cell inside the domain (so
+    the solid boundary stays the domain's own) are written as PLY files
+    with a scene file, and cli.main runs one warm frame and `frames` timed
+    frames of `dt` from them. The launch counts are set to 0 just before
+    cli.main and read just after. Returns run_main_path's dict plus
+    `run` (the SceneRun)."""
+    dev = torch.device(device)
+    scene = write_scene(
+        workdir, name, box_mesh((1.0 / res,) * 3, (1.0 - 1.0 / res,) * 3),
+        pool_mesh(res, lift), resolution=res, viscosity=5.0, dt=dt,
+        frames=frames + 1, export="none",
+        config={"bucket_capacity": 16, **overrides})
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    run, lines, setup_s = run_cli(["--scene", scene, "--device", dev.type])
+    result = _path_result(run.sim, run.frames, run.frames[1:],
+                          sum(ln["wall_s"] for ln in lines[1:]),
+                          launch_counts(), dev, setup_s)
+    result["run"] = run
+    return result
+
+
+_CLI_INT_FIELDS = ("substeps", "pressure_iters", "viscosity_iters",
+                   "liquid_cells", "bucket_overflow")
+
+
+def run_cli64(device, workdir, resolution=None) -> dict:
+    """The CLI at its default resolution (64; `resolution` overrides it for
+    the CPU tests) on a sphere drop in an inverted cube, both from
+    io/primitives: 4 frames with --export both --checkpoint-every 2, then a
+    second run of 2 frames resumed from ckpt_0002.npz. Checks that frame
+    2's PLY and OBJ exports read back to the checkpoint's positions (PLY
+    exactly, OBJ to 1e-6), that the resumed run's lines repeat the first
+    run's frames 2 and 3 in every integer field, and that the two final
+    positions differ by at most 1e-5. The launch counts cover both runs."""
+    dev = torch.device(device)
+    scene = write_scene(workdir, "cli64",
+                        primitives.cube((0.5, 0.5, 0.5), 0.9),
+                        primitives.sphere((0.5, 0.6, 0.5), 0.2))
+    base = ["--scene", scene, "--device", dev.type, "--export", "both"]
+    if resolution is not None:
+        base += ["--resolution", str(resolution)]
+    out = os.path.join(workdir, "cli64")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    first, lines1, setup_s = run_cli(
+        base + ["--frames", "4", "--checkpoint-every", "2"])
+    ckpt = os.path.join(out, "ckpt_0002.npz")
+    second, lines2, _ = run_cli(
+        base + ["--frames", "2", "--resume", ckpt,
+                "--output-dir", out + "_resumed"])
+    launches = launch_counts()
+
+    failures = []
+    with np.load(ckpt) as data:
+        saved = data["pos"]
+    ply = tm.load_ply(os.path.join(out, "0002.ply")).vertices
+    obj = tm.load_obj(os.path.join(out, "0002.obj")).vertices
+    if not np.array_equal(ply, saved):
+        failures.append("frame 2's PLY export differs from the checkpoint")
+    obj_err = float(np.abs(obj - saved).max())
+    if not obj_err <= 1e-6:
+        failures.append(f"frame 2's OBJ export differs by {obj_err}")
+    resumed_ply = tm.load_ply(os.path.join(out + "_resumed", "0000.ply"))
+    if not np.array_equal(resumed_ply.vertices, saved):
+        failures.append("the resumed run's first export differs from the "
+                        "checkpoint")
+    for a, b in zip(lines1[2:], lines2):
+        for k in _CLI_INT_FIELDS:
+            if a[k] != b[k]:
+                failures.append(f"resumed frame {b['frame']}: {k} {b[k]} "
+                                f"but {a[k]} in the first run")
+    final_diff = float((first.sim.state.pos - second.sim.state.pos)
+                       .abs().max())
+    if not final_diff <= 1e-5:
+        failures.append(f"final positions differ by {final_diff}")
+    diags = first.frames + second.frames
+    result = _path_result(first.sim, diags, diags,
+                          sum(ln["wall_s"] for ln in lines1 + lines2),
+                          launches, dev, setup_s)
+    result.update(obj_max_abs_err=obj_err,
+                  resumed_final_max_abs_diff=final_diff)
+    result["failures"] = failures + result["failures"]
+    return result
+
+
 def profile_frames(res: int, frames: int, top: int = 25, dt: float = DT,
                    lift: float = 0.0, **overrides) -> dict:
     """Trace `frames` frames of `dt` of the bench scene (lifted by `lift`,
-    config `overrides`) on the card after one warm frame with
-    torch.profiler: wall time, summed device kernel time, and the `top`
+    config `overrides`) on the card after one warm frame (profile_sim)."""
+    sim = bench_scene("cuda", res, lift, **overrides)
+    sim.advance(dt)
+    return profile_sim(sim, frames, top, dt)
+
+
+def profile_sim(sim, frames: int, top: int = 25, dt: float = DT) -> dict:
+    """Trace the next `frames` frames of `dt` of a simulation on the card
+    with torch.profiler: wall time, summed device kernel time, and the `top`
     operators by device self time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sim = bench_scene("cuda", res, lift, **overrides)
-    sim.advance(dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

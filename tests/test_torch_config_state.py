@@ -32,13 +32,12 @@ from flipviscosity3d_torch.ops import mesh_sdf as tmesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# JAX fields with no counterpart in the port: the engine choice (the port
-# has one) and the knobs that only choose a TPU layout or precision
-# (config.py).
-TPU_ONLY = {
-    "particle_engine", "pallas_split_gather", "pallas_gather_dtype",
-    "pallas_split_terms", "mg_backend",
-}
+# JAX fields with no counterpart in the port: the knobs that only choose a
+# TPU layout or precision (config.py).
+TPU_ONLY = {"pallas_gather_dtype", "pallas_split_terms", "mg_backend"}
+# The one shared field whose default differs: the JAX package defaults to
+# its table engine, the port to the only engine it has.
+OWN_DEFAULT = {"particle_engine"}
 SEED_BOX = ((0.2, 0.2, 0.2), (0.8, 0.55, 0.8))
 OBSTACLE = ((0.45, 0.1, 0.4), (0.6, 0.3, 0.55))
 
@@ -48,8 +47,10 @@ def test_config_shared_fields_match_jax_defaults():
     port_fields = {f.name for f in dataclasses.fields(SimConfig)}
     assert port_fields == jax_fields - TPU_ONLY
     jc, pc = JaxConfig(), SimConfig()
-    for name in sorted(port_fields):
+    for name in sorted(port_fields - OWN_DEFAULT):
         assert getattr(pc, name) == getattr(jc, name), name
+    assert (pc.particle_engine, jc.particle_engine) == ("pallas", "table")
+    assert pc.pallas_split_gather is None
     for prop in ("grid_shape", "n_cells", "particle_radius", "u_shape",
                  "v_shape", "w_shape", "node_shape"):
         assert getattr(pc, prop) == getattr(jc, prop), prop
@@ -75,6 +76,24 @@ def test_config_variant_values_match_jax(field):
         assert getattr(JaxConfig(**{field: value}), field) == value
 
 
+@pytest.mark.parametrize("engine", ["table", "stream"])
+def test_config_names_the_engine_it_does_not_have(engine):
+    """A scene file's config block serves both CLIs: the port takes
+    "pallas" and raises a plain error that names any other JAX engine."""
+    assert SimConfig(particle_engine="pallas").particle_engine == "pallas"
+    assert JaxConfig(particle_engine=engine).particle_engine == engine
+    with pytest.raises(ValueError, match=f"'{engine}' is not ported"):
+        SimConfig(particle_engine=engine)
+    with pytest.raises(ValueError, match="must be one of"):
+        SimConfig(particle_engine="nonsense")
+
+
+@pytest.mark.parametrize("value", [None, True, False])
+def test_config_takes_pallas_split_gather(value):
+    assert SimConfig(pallas_split_gather=value).pallas_split_gather is value
+    assert JaxConfig(pallas_split_gather=value).pallas_split_gather is value
+
+
 def test_fluid_simulation_defaults_to_the_card():
     """FluidSimulation() places its state on the card; where torch sees no
     card it raises instead of running on the CPU."""
@@ -91,6 +110,14 @@ def test_package_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import flipviscosity3d_torch, flipviscosity3d_torch.smoke\n"
         "import flipviscosity3d_torch.core.step\n"
+        "import flipviscosity3d_torch.cli\n"
+        "import flipviscosity3d_torch.io.primitives\n"
+        "import flipviscosity3d_torch.io.trianglemesh\n"
+        "import flipviscosity3d_torch.ops.interp\n"
+        "import flipviscosity3d_torch.utils.aabb\n"
+        "import flipviscosity3d_torch.utils.checkpoint\n"
+        "import flipviscosity3d_torch.utils.debug\n"
+        "import flipviscosity3d_torch.utils.vmath\n"
         "assert not any(m.startswith('flipviscosity3d_tpu') "
         "for m in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -157,6 +184,68 @@ def test_scene_setup_matches_jax(scenes):
     olo, ohi = np.array(OBSTACLE[0]) + 1 / 16, np.array(OBSTACLE[1]) - 1 / 16
     assert not ((ta["pos"] > olo) & (ta["pos"] < ohi)).all(axis=1).any()
     np.testing.assert_array_equal(tsim.particle_positions, ta["pos"])
+
+
+def test_reset_boundary_drops_obstacles(scenes):
+    """reset_boundary returns to the domain box alone, in both packages:
+    node phi to 1e-6 of JAX's, and the obstacle's solid nodes are gone."""
+    jsim, _ = scenes
+    tsim = FluidSimulation("cpu")
+    tsim.initialize(16, 16, 16, 1.0 / 16)
+    bare = tsim.state.solid.phi.clone()
+    tsim.add_boundary(box_mesh(*OBSTACLE))
+    with_obstacle = tsim.state.solid.phi
+    assert (with_obstacle < bare - 1e-3).any()
+    tsim.reset_boundary()
+    assert tsim._state is None
+    assert torch.equal(tsim.state.solid.phi, bare)
+    fresh = JaxSim()
+    fresh.initialize(16, 16, 16, 1.0 / 16)
+    fresh.add_boundary(jax_box_mesh(*OBSTACLE))
+    fresh.reset_boundary()
+    np.testing.assert_allclose(bare.numpy(),
+                               np.asarray(fresh.state.solid.phi), rtol=0,
+                               atol=1e-6)
+
+
+def test_particle_velocities_reads_the_state(scenes):
+    """Zero after seeding, as in JAX; after a frame, the state's."""
+    jsim, tsim = scenes
+    assert jsim.particle_velocities.shape == jsim.particle_positions.shape
+    sim = FluidSimulation("cpu")
+    sim.initialize(16, 16, 16, 1.0 / 16, bucket_capacity=16)
+    sim.add_liquid(box_mesh(*SEED_BOX))
+    vel = sim.particle_velocities
+    assert vel.shape == sim.particle_positions.shape and not vel.any()
+    sim.advance(0.01)
+    vel = sim.particle_velocities
+    assert isinstance(vel, np.ndarray) and vel.dtype == np.float32
+    np.testing.assert_array_equal(vel, sim.state.vel.numpy())
+    assert np.abs(vel).max() > 0
+
+
+def test_assigned_state_is_honoured_and_advanced_from(scenes):
+    """The CLI resumes by assigning sim._state: the `state` property must
+    hand that state back, and advance must run from it. Two sims of one
+    scene, one advanced a frame; its state assigned to the other makes the
+    other's next frame bit-equal to the first's."""
+    def make():
+        sim = FluidSimulation("cpu")
+        sim.initialize(16, 16, 16, 1.0 / 16, bucket_capacity=16)
+        sim.add_liquid(box_mesh(*SEED_BOX))
+        sim.set_viscosity(2.0)
+        return sim
+
+    a, b = make(), make()
+    a.advance(0.01)
+    b._state = a.state
+    assert b.state is a.state
+    np.testing.assert_array_equal(b.particle_positions, a.particle_positions)
+    a.advance(0.01)
+    b.advance(0.01)
+    assert torch.equal(a.state.pos, b.state.pos)
+    assert torch.equal(a.state.vel, b.state.vel)
+    assert a.last_diagnostics.as_dict() == b.last_diagnostics.as_dict()
 
 
 def test_mesh_to_sdf_matches_jax_off_grid():

@@ -214,7 +214,8 @@ def test_main_path_runs_on_cpu():
     assert result["particles"] > 0 and result["substeps"] >= 2
     assert result["launches"] == {
         "scatter_p2g_table": 0, "gather_mac": 0, "mg_down": 0, "mg_up": 0,
-        "scatter_p2g_table_stale": 0, "gather_rows8": 0}
+        "scatter_p2g_table_stale": 0, "gather_rows8": 0,
+        "scatter_p2g_table_folded": 0, "scatter_p2g_table_stale_folded": 0}
     assert result["path_kernels"] == [
         "scatter_p2g_table", "gather_mac", "mg_down", "mg_up"]
     assert all(f["viscosity_iterations"] > 0 for f in result["frames"])
