@@ -9,13 +9,19 @@
 2. Builds the CUDA kernels from flipviscosity3d_torch/csrc (one nvcc per
    source, all started together, sm_90a) and prints the build time and
    ptxas' register / spill report.
-3. Holds each of the eight kernels against its plain PyTorch version on the
-   card, at the bench scene's shapes (128^3 grid, ~4.1M particles; K5 and
-   K6 on a fully covered falling order and on a partly covered random one;
-   K1 and K5 in both layouts of their sums, the K-folded one also against
-   the unfolded kernels), and times the kernel, the plain version and, where
-   one exists, the one PyTorch call that computes the same function; states
-   each kernel's bound.
+3. Holds each of the twelve kernels against its plain PyTorch version on
+   the card, at the bench scene's shapes (128^3 grid, ~4.1M particles; K5
+   and K6 on a fully covered falling order and on a partly covered random
+   one; K1 and K5 in both layouts of their sums, the K-folded one also
+   against the unfolded kernels; K7 gather_rows at 108 and 54 columns of an
+   f32 and a bf16 image, sorted and in a random, partly covered order; K8
+   detile at F = 108 and 3; the revisit probes K9 and K10 at F = 128), and
+   times the kernel, the plain version and, where one exists, the one
+   PyTorch call that computes the same function (for K7 one advanced
+   index of the image); states each kernel's bound. Then advances that
+   scene by two frames and holds the unfused route (build_mac_columns ->
+   K7 -> combine_mac_samples) against K2 gather_mac on its particles and
+   grids, with f32 and with bf16 images.
 4. Drives three main paths through FluidSimulation() on the card, each
    with the launch counts set to 0 just before it and read just after:
    - "bench": the bench scene under the JAX package's default engine
@@ -30,7 +36,15 @@
    printing each frame's diagnostics (substeps, stale substeps, overflow,
    iterations), substeps/s, peak memory and the launch counts. A path fails
    if one of its kernels was never launched or a residual missed its
-   tolerance.
+   tolerance. Then two more:
+   - "hw_check": the three hardware checks of flipviscosity3d_torch/scripts
+     in turn (pallas_hw_check at 32^3; gather_smem_check at 128^3 with
+     4,111,806 keys and at 256^3 with 8 times as many; gather_perf_probe at
+     262,144 and 4,111,806 keys), one JSON line per module; fails if a check
+     inside failed or K7, K8, K9 or K10 never launched;
+   - "bench_bf16": the bench run again under pallas_gather_dtype "bf16";
+     fails unless its residuals hold and its final positions differ from
+     those of "bench", the same run under "f32".
 5. Drives three paths through the scene CLI (flipviscosity3d_torch.cli),
    from mesh and scene files that it writes under build/smoke_scenes:
    - "cli64": the CLI at its default resolution of 64, a sphere drop in an
@@ -43,9 +57,12 @@
      folded K1 ran and the unfolded K1 did not. One more frame of the same
      simulation then runs under torch.profiler (device busy time over wall
      time, and the largest device rows), and on its final state step 3 is
-     repeated at the 256^3 shapes: all eight kernels against their plain
+     repeated at the 256^3 shapes: all twelve kernels against their plain
      versions (257^3 levels, ~35.5M particles; the plain scatters add
-     their values in 16 runs of particles, to fit the card), timed there;
+     their values in 16 runs of particles, to fit the card; K7 on the
+     54-lane image, as the JAX step splits its gather there, and on the
+     108-lane one if the card has the room; K9 and K10 over the first 2^23
+     particles), timed there, and the unfused route against K2 again;
    - "stale256": the lifted pool at 256^3 under stale / plan / kernel, one
      warm frame and 2 frames of dt = 0.04; fails unless the folded K5 and
      K6 ran.
@@ -58,7 +75,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -71,17 +87,6 @@ RECORD_KEYS = ("name", "route", "source", "replaces", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
-def _card() -> str:
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60)
-        return out.stdout.strip().splitlines()[0]
-    except (OSError, IndexError, subprocess.TimeoutExpired) as e:
-        return f"nvidia-smi unavailable ({e})"
-
-
 def main() -> int:
     import torch
 
@@ -92,12 +97,13 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from flipviscosity3d_torch import _build, smoke
+        from flipviscosity3d_torch.scripts import card as read_card
     except ImportError as e:
         print(f"chip_smoke: the flipviscosity3d_torch package is missing "
               f"beside this script ({e})", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    card = _card()
+    card = read_card()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()} "
@@ -115,6 +121,20 @@ def main() -> int:
     records = smoke.check_kernels(sim.state, sim.cfg)
     failures += [f"kernel {r['name']} disagrees with its plain version"
                  for r in records if not r["ok"]]
+
+    def route(sim, at):
+        """One more frame of `sim`, then the unfused route against K2 on
+        its state, the grids of the frame before as the second grid."""
+        prev = (sim.state.u, sim.state.v, sim.state.w)
+        sim.advance(smoke.DT)
+        rec = smoke.check_unfused_route(sim.state, prev, sim.cfg,
+                                        log=lambda _: None)
+        print(json.dumps({"at": at, **rec, "card": card}), flush=True)
+        if not rec["ok"]:
+            failures.append(f"the unfused route disagrees with K2 at {at}")
+
+    sim.advance(smoke.DT)
+    route(sim, f"{RES}^3")
     del sim
     torch.cuda.empty_cache()
 
@@ -148,8 +168,33 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     for name, dt, lift, overrides in smoke.MAIN_PATHS:
-        report(name, smoke.run_main_path("cuda", RES, FRAMES, dt=dt,
-                                         lift=lift, **overrides))
+        result = smoke.run_main_path("cuda", RES, FRAMES, dt=dt, lift=lift,
+                                     **overrides)
+        pos = result.pop("sim").state.pos
+        if name == "bench":
+            bench_pos = pos   # the f32 run that "bench_bf16" is held against
+        del pos
+        report(name, result)
+
+    result = smoke.run_hw_check("cuda", RES, large_res=LARGE_RES,
+                                log=lambda _: None)
+    for m in result["modules"]:
+        print(json.dumps({**m, "card": card}), flush=True)
+    failures.extend(f"path hw_check: {f}" for f in result["failures"])
+    for k in launches:
+        launches[k] += result["launches"][k]
+    print(json.dumps({"path": "hw_check", "wall_s": result["wall_s"],
+                      "launches": result["launches"],
+                      "path_kernels": result["path_kernels"],
+                      "card": card}), flush=True)
+    torch.cuda.empty_cache()
+
+    result = smoke.run_gather_dtype_path("cuda", RES, FRAMES, bench_pos)
+    del bench_pos
+    print(json.dumps({
+        "path": "bench_bf16",
+        "max_abs_diff_from_f32": result.get("max_abs_diff_from_f32")}))
+    report("bench_bf16", result)
 
     result = smoke.run_cli64("cuda", SCENE_DIR)
     print(json.dumps({
@@ -167,6 +212,7 @@ def main() -> int:
         "profile": "the next frame of bench256 under torch.profiler",
         "busy_over_wall": prof["device_busy_ms"] / prof["wall_ms"],
         **prof, "card": card}), flush=True)
+    route(run.sim, f"{LARGE_RES}^3")
     state, cfg = run.sim.state, run.sim.cfg
     del run, result
     torch.cuda.empty_cache()

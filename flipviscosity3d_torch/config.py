@@ -35,8 +35,17 @@ fold_sums (the K-folded sums of the scatter at >= 2^24 cells) is no field
 here, as it is none in the JAX package: the scatter decides by the grid
 size itself (ops/pallas_particles.py).
 
-The knobs that only choose a TPU layout or precision are not fields here,
-since they change nothing the port computes: pallas_gather_dtype,
+pallas_gather_dtype ("f32", the default, or "bf16") is a field because it
+changes what the step computes: under "bf16" the JAX step stores the column
+image that G2P and the midpoint sample read in bf16, so every sample is
+taken from grid values rounded to bf16 (round to nearest even) before the
+f32 trilinear combine. The port's gather reads the velocity grids
+directly, so under "bf16" the step rounds the six grids that way before
+its two gathers (core/step.py); the grids kept in the state stay f32. Any
+other value raises.
+
+The knobs that only choose the number of MXU passes or a TPU backend are
+not fields here, since they change nothing the port computes:
 pallas_split_terms and mg_backend. The V(1,1) V-cycle runs through the
 mg_down / mg_up kernels on the card and through their plain PyTorch
 versions on the CPU.
@@ -57,6 +66,7 @@ _ENUMS = {
     "pallas_pass_a": ("sort", "stale"),
     "pallas_pass_b": ("plan", "sort"),
     "pallas_pushback": ("gather", "kernel"),
+    "pallas_gather_dtype": ("f32", "bf16"),
 }
 
 
@@ -120,6 +130,9 @@ class SimConfig:
     pallas_pushback: str = "gather"
     # Taken for the JAX package's scene files; no effect (module docstring).
     pallas_split_gather: bool | None = None
+    # "bf16": G2P and the midpoint sample read grid values rounded to bf16
+    # (module docstring).
+    pallas_gather_dtype: str = "f32"
 
     max_substeps: int = 64
 

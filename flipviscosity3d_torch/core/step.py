@@ -130,6 +130,16 @@ def _grid_update(state: SimState, liquid_phi, p2g_sums, dt: float,
     return new, saved, solver_diag
 
 
+def _gather_grids(cfg: SimConfig, *grids):
+    """The grids as G2P and the midpoint sample read them: under
+    pallas_gather_dtype "bf16" rounded to bf16 (round to nearest even) and
+    widened back, which is what storing the JAX column image in bf16 does
+    to every value it holds; under "f32" the grids themselves."""
+    if cfg.pallas_gather_dtype == "bf16":
+        return tuple(g.to(torch.bfloat16).float() for g in grids)
+    return grids
+
+
 def runs_stale(cfg: SimConfig, substep_idx) -> bool:
     """Whether substep `substep_idx` (None for 0) keeps the previous
     substep's particle order: pass A "stale", except on every
@@ -195,8 +205,9 @@ def step(state: SimState, dt: float, cfg: SimConfig, substep_idx=None):
     # ---------------- G2P + advection ----------------
     spx, spy, spz = (pos_a[:, a].contiguous() for a in range(3))
     svx, svy, svz = vel_a.unbind(dim=1)
-    gm = pp.gather_mac(spx, spy, spz, key_a, [u, su], [v, sv], [w, sw],
-                       dx, shape)
+    gu, gv, gw, gsu, gsv, gsw = _gather_grids(cfg, u, v, w, su, sv, sw)
+    gm = pp.gather_mac(spx, spy, spz, key_a, [gu, gsu], [gv, gsv],
+                       [gw, gsw], dx, shape)
     nu, nv, nw, ou, ov, ow = gm.unbind(dim=0)   # rows g*3 + comp
     if plan_a is not None:
         # uncovered particles advect ballistically: new == old == own
@@ -233,7 +244,7 @@ def step(state: SimState, dt: float, cfg: SimConfig, substep_idx=None):
     else:
         key_m, fields = pp.sort_by_key(key_m, fields)
     bmx, bmy, bmz, bpx, bpy, bpz, bvx, bvy, bvz = fields
-    gmb = pp.gather_mac(bmx, bmy, bmz, key_m, [u], [v], [w], dx, shape)
+    gmb = pp.gather_mac(bmx, bmy, bmz, key_m, [gu], [gv], [gw], dx, shape)
     inside_m = ((bmx >= 0) & (bmx < shape[0] * dx)
                 & (bmy >= 0) & (bmy < shape[1] * dx)
                 & (bmz >= 0) & (bmz < shape[2] * dx))

@@ -40,31 +40,19 @@
 #include <stdint.h>
 
 #include "p2g_wyvill.cuh"
+#include "sorted_runs.cuh"
 
 namespace {
 
 using flip3d::Face;
 using flip3d::face_of;
 using flip3d::velocity_of;
+using flip3d::warp_run_of;
 using flip3d::wyvill;
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;          // warps (cells) per block
 constexpr int kSlotsPerLane = 4;   // cap <= 32: cap*4 <= 128 table values
 constexpr int kLanes = 108;        // sums per cell
-
-__device__ __forceinline__ int lower_bound(const int* __restrict__ key, int n,
-                                           int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (key[mid] < v)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
 
 template <int kStride>
 __global__ void p2g_scatter_kernel(const float* __restrict__ pos,
@@ -89,13 +77,8 @@ __global__ void p2g_scatter_kernel(const float* __restrict__ pos,
   const int gk = (tile % ntk) * 8 + (local & 7);
   const int64_t cell = ((int64_t)gi * J + gj) * K + gk;
 
-  int start = 0, end = 0;
-  if (lane == 0) {
-    start = lower_bound(key, n, t);
-    end = lower_bound(key, n, t + 1);
-  }
-  start = __shfl_sync(kFull, start, 0);
-  end = __shfl_sync(kFull, end, 0);
+  int start, end;
+  warp_run_of(key, n, t, start, end);
 
   const bool has2 = lane + 32 < 54;
   const Face f0 = face_of(lane);

@@ -32,6 +32,14 @@ JAX package does: (I, J, K*SUML) with cell (i, j, k)'s lane f at
 k*SUML + f and lanes 108..111 of each cell zero; `p2g_combine` then works
 through the sums in i-slabs.
 
+The tile-major column tools are the JAX package's own oracle of the fused
+gather, and what its hardware checks drive (scripts/): `build_mac_columns`
+stacks the 2x3x3 window of each MAC grid into an F-major tile image
+(n_tiles, F, W), `gather_rows` (K7) reads each particle's row of it,
+`combine_mac_samples` does the trilinear combine in plain torch, and
+`detile` (K8) copies a W-major tile image (n_tiles, W, F) back to
+(I, J, K, F). `step` does not take that route: it gathers fused.
+
 Every kernel wrapper takes the plain PyTorch version for CPU tensors and
 launches its CUDA kernel (csrc/*.cu) for CUDA tensors.
 """
@@ -694,3 +702,202 @@ def gather_rows8(keys, covered, phi_node, grid_shape):
 
 
 gather_rows8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# layout conversion: (I, J, K, F) <-> tile-major (n_tiles, W, F); K8
+# ---------------------------------------------------------------------------
+
+def to_tile_major(x):
+    """(I, J, K, F) -> (n_tiles, W, F)."""
+    i, j, k, f = x.shape
+    nt = tile_counts((i, j, k))
+    x = x.reshape(nt[0], TILE[0], nt[1], TILE[1], nt[2], TILE[2], f)
+    return x.permute(0, 2, 4, 1, 3, 5, 6).reshape(nt[0] * nt[1] * nt[2], W, f)
+
+
+def stack_tile_major(cols, grid_shape):
+    """F (I, J, K) column grids -> (n_tiles, W, F) tile-major image."""
+    f = len(cols)
+    nt = tile_counts(grid_shape)
+    x = torch.stack(list(cols), dim=0)
+    x = x.reshape(f, nt[0], TILE[0], nt[1], TILE[1], nt[2], TILE[2])
+    return x.permute(1, 3, 5, 2, 4, 6, 0).reshape(
+        nt[0] * nt[1] * nt[2], W, f)
+
+
+def stack_tile_major_fw(cols, grid_shape, i_slabs=None, dtype=torch.float32):
+    """F (I, J, K) column grids -> (n_tiles, f_pad, W) F-MAJOR tile image of
+    `dtype` (f32 or bf16, rounded to nearest even), f_pad the next multiple
+    of 8 with the pad lanes zero.
+
+    The image is filled in i_slabs slabs of tile rows (None: 8 at >= 2^24
+    cells when the tile rows divide by 8, else 1): per slab the columns'
+    rows are stacked lane-leading and relaid into their tiles, so only one
+    slab's stack is alive beside the columns and the image. The result is
+    the same for every i_slabs."""
+    f = len(cols)
+    nt = tile_counts(grid_shape)
+    f_pad = -(-f // 8) * 8
+    if i_slabs is None:
+        i_slabs = 8 if (large_grid(grid_shape) and nt[0] % 8 == 0) else 1
+    if nt[0] % i_slabs:
+        raise ValueError(f"stack_tile_major_fw: {i_slabs} slabs do not divide "
+                         f"{nt[0]} tile rows")
+    per_t = nt[0] // i_slabs            # tile rows per slab
+    rows = per_t * TILE[0]
+    tiles_per = per_t * nt[1] * nt[2]
+    out = torch.empty((nt[0] * nt[1] * nt[2], f_pad, W), dtype=dtype,
+                      device=cols[0].device)
+    for s in range(i_slabs):
+        x = torch.zeros((f_pad, rows) + tuple(grid_shape[1:]), dtype=dtype,
+                        device=out.device)
+        for lane, col in enumerate(cols):
+            x[lane] = col[s * rows:(s + 1) * rows]
+        x = x.reshape(f_pad, per_t, TILE[0], nt[1], TILE[1], nt[2], TILE[2])
+        out[s * tiles_per:(s + 1) * tiles_per] = x.permute(
+            1, 3, 5, 0, 2, 4, 6).reshape(tiles_per, f_pad, W)
+    return out
+
+
+def from_tile_major(y, grid_shape):
+    """(n_tiles, W, F) -> (I, J, K, F): the plain version of detile."""
+    f = y.shape[-1]
+    nt = tile_counts(grid_shape)
+    y = y.reshape(nt[0], nt[1], nt[2], TILE[0], TILE[1], TILE[2], f)
+    return y.permute(0, 3, 1, 4, 2, 5, 6).reshape(*grid_shape, f)
+
+
+_DETILE_ARGS = (_P,) + (_I,) * 4 + (_P,) + (_P,)
+
+
+def detile(y, grid_shape):
+    """(n_tiles, W, F) f32 -> (I, J, K, F), as a copy kernel (K8)."""
+    check_grid(grid_shape)
+    if _build.on_cpu(y, "detile"):
+        return from_tile_major(y, grid_shape)
+    ni, nj, nk = grid_shape
+    f = y.shape[-1]
+    _build.require(y, "y", torch.float32, ((ni * nj * nk) // W, W, f))
+    out = torch.empty((ni, nj, nk, f), dtype=torch.float32, device=y.device)
+    if y.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("detile: expected 16-byte aligned tensors")
+    _build.launch("flip3d_detile", _DETILE_ARGS, y.data_ptr(), ni, nj, nk, f,
+                  out.data_ptr())
+    detile.launches += 1
+    return out
+
+
+detile.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: per-particle rows of an F-major tile image
+# ---------------------------------------------------------------------------
+
+MAX_GATHER_LANES = 372   # 33 words of shared memory per lane, 48 KB a block
+
+
+def gather_rows_ref(keys, covered, cols_fw, f_logical=None):
+    """Plain version of gather_rows: the image's first f_logical lanes
+    turned W-major, indexed by key, masked."""
+    f = cols_fw.shape[1] if f_logical is None else f_logical
+    wm = cols_fw[:, :f].permute(0, 2, 1).reshape(-1, f)
+    rows = wm[keys.long()].float()
+    if covered is None:
+        return rows
+    return torch.where(covered[:, None], rows, torch.zeros_like(rows))
+
+
+_ROWS_ARGS = (_P,) * 2 + (_I,) + (_P,) + (_I,) * 3 + (_P,) + (_P,)
+
+
+def gather_rows(keys, covered, cols_fw, f_logical=None):
+    """Per-particle rows of an F-major tile image (K7):
+    rows[p, f] = cols_fw[keys[p] // W, f, keys[p] % W] for f < f_logical.
+
+    keys: (N,) int32 tile-major keys, in any order, every covered key below
+    n_tiles * W (not checked on the card: a key past the image reads out of
+    bounds, where the plain version raises); covered: (N,) bool or None
+    (every particle); cols_fw: (n_tiles, F, W) f32 or bf16
+    (stack_tile_major_fw pads F to a multiple of 8, so pass the logical
+    column count to leave the pad lanes out; None: all F). Returns
+    (N, f_logical) f32: a bf16 value widened exactly, zero rows for
+    uncovered particles."""
+    f = cols_fw.shape[1] if f_logical is None else f_logical
+    if not 0 <= f <= cols_fw.shape[1]:
+        raise ValueError(f"gather_rows: f_logical {f} outside the image's "
+                         f"{cols_fw.shape[1]} lanes")
+    if _build.on_cpu(keys, "gather_rows"):
+        return gather_rows_ref(keys, covered, cols_fw, f)
+    n = keys.shape[0]
+    _build.require(keys, "keys", torch.int32, (n,))
+    if covered is not None:
+        _build.require(covered, "covered", torch.bool, (n,))
+    _build.require(cols_fw, "cols_fw", (torch.float32, torch.bfloat16),
+                   (cols_fw.shape[0], cols_fw.shape[1], W))
+    if f > MAX_GATHER_LANES:
+        raise ValueError(
+            f"gather_rows: at most {MAX_GATHER_LANES} lanes, got {f}")
+    rows = torch.empty((n, f), dtype=torch.float32, device=keys.device)
+    _build.launch(
+        "flip3d_gather_rows", _ROWS_ARGS, keys.data_ptr(),
+        None if covered is None else covered.data_ptr(), n,
+        cols_fw.data_ptr(), int(cols_fw.dtype == torch.bfloat16),
+        cols_fw.shape[1], f, rows.data_ptr())
+    gather_rows.launches += 1
+    return rows
+
+
+gather_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# MAC sampling through gathered columns: the unfused oracle of gather_mac
+# ---------------------------------------------------------------------------
+
+def build_mac_columns(grids_u, grids_v, grids_w, grid_shape,
+                      dtype=torch.float32):
+    """(n_tiles, f_pad, W) F-major per-cell columns of `dtype`, grid-major
+    lane order: lane (g*3 + comp)*18 + oidx holds grid g of component comp
+    at window offset oidx (p2g_abs_offset), 0 outside the face grid. Rows
+    [:54] are grid 0's columns."""
+    comp_grids = (grids_u, grids_v, grids_w)
+    cols = [shifted_read(comp_grids[comp][g], p2g_abs_offset(comp, oidx),
+                         grid_shape)
+            for g in range(len(grids_u)) for comp in range(3)
+            for oidx in range(18)]
+    return stack_tile_major_fw(cols, grid_shape, dtype=dtype)
+
+
+def combine_mac_samples(rows, px, py, pz, keys, dx, grid_shape, n_grids,
+                        valid=None):
+    """Trilinear combine of gathered (N, >= 54*n_grids) rows ->
+    ([u samples], [v samples], [w samples]), one (N,) tensor per grid
+    (macvelocityfield.cpp:455-578), zero where `valid` is False."""
+    home = decode_key(keys, grid_shape)
+    ps = (px, py, pz)
+    outs = ([], [], [])
+    for comp in range(3):
+        fr, delta = [], []
+        for ax in range(3):
+            f = ps[ax] / dx - _MAC_OFFSETS[comp][ax]
+            b = torch.floor(f)
+            fr.append(f - b)
+            delta.append(b.to(torch.int32) - home[ax])
+        for g in range(n_grids):
+            out = torch.zeros_like(px)
+            for oidx in range(18):
+                o = p2g_abs_offset(comp, oidx)
+                w = torch.ones_like(px)
+                for ax in range(3):
+                    corner = o[ax] - delta[ax]
+                    w = w * torch.where(
+                        corner == 0, 1.0 - fr[ax],
+                        torch.where(corner == 1, fr[ax],
+                                    torch.zeros_like(fr[ax])))
+                out = out + w * rows[:, (g * 3 + comp) * 18 + oidx]
+            if valid is not None:
+                out = torch.where(valid, out, torch.zeros_like(out))
+            outs[comp].append(out)
+    return outs

@@ -15,6 +15,15 @@ run the main paths at 16^3. `profile_frames(res, frames)` traces frames of
 the scene on the card with torch.profiler (where the time goes);
 `profile_sim` does so for a simulation that is already set up.
 
+The tile-major column path (K7 gather_rows, K8 detile, the revisit probes
+K9 and K10) is not on `advance`'s path, which gathers fused. Its entry
+points are the hardware checks of flipviscosity3d_torch/scripts:
+`run_hw_check` calls the three in turn and reads the launch counts.
+`check_unfused_route` ties the slice to the main path: on a state after a
+frame, build_mac_columns -> K7 -> combine_mac_samples against K2.
+`run_gather_dtype_path` runs the bench path under pallas_gather_dtype
+"bf16" and holds its final state apart from the f32 run's.
+
 `run_scene_path` drives the same scene through the scene CLI
 (cli.main) from mesh files and a scene file that it writes, as a user
 would: chip_smoke.py runs it at 256^3, where the scatters fold their sums
@@ -33,7 +42,6 @@ import io
 import json
 import math
 import os
-import statistics
 import sys
 import time
 
@@ -49,6 +57,8 @@ from .io import trianglemesh as tm
 from .io.trianglemesh import box_mesh
 from .ops import pallas_mg as pm
 from .ops import pallas_particles as pp
+from .scripts import gather_perf_probe as probe
+from .scripts import gather_smem_check, pallas_hw_check, time_ms
 from .solvers import multigrid as mg
 
 # (wrapper, source, the TPU kernel it replaces)
@@ -75,7 +85,19 @@ KERNELS = (
      "flipviscosity3d_torch/csrc/p2g_scatter_stale.cu",
      "flipviscosity3d_tpu/ops/pallas_particles.py:714 (inkernel_rank=True,"
      " fold_sums=True, _p2g_chunk_values_folded :560)"),
+    (pp.gather_rows, "flipviscosity3d_torch/csrc/gather_rows.cu",
+     "flipviscosity3d_tpu/ops/pallas_particles.py:983"),
+    (pp.detile, "flipviscosity3d_torch/csrc/detile.cu",
+     "flipviscosity3d_tpu/ops/pallas_particles.py:459"),
+    (probe.scatter_revisit, "flipviscosity3d_torch/csrc/revisit.cu",
+     "scripts/gather_perf_probe.py:48"),
+    (probe.gather_revisit, "flipviscosity3d_torch/csrc/revisit.cu",
+     "scripts/gather_perf_probe.py:83"),
 )
+# the kernels of the hardware-check path (run_hw_check)
+HW_CHECK_KERNELS = ("gather_rows", "detile", "scatter_revisit",
+                    "gather_revisit")
+BENCH_PARTICLES = 4_111_806   # the JAX bench scene's pool at 128^3
 DT = 0.01
 STALE_LIFT = 0.43
 # The visit-plan variants of the second main path (config.py).
@@ -158,7 +180,8 @@ def run_main_path(device, res: int, frames: int, dt: float = DT,
     `overrides`): one warm frame, then `frames` timed frames of `dt`. The
     launch counts are set to 0 just before the warm frame and read after
     the last. Returns a dict of results; `failures` lists the checks that
-    did not hold."""
+    did not hold; `sim` is the simulation in its final state, for the
+    caller to pop."""
     dev = torch.device(device)
     t_setup = time.perf_counter()
     sim = bench_scene(dev, res, lift, **overrides)
@@ -180,8 +203,35 @@ def run_main_path(device, res: int, frames: int, dt: float = DT,
         log(json.dumps({"frame": frame, "warm": frame == 0, **d.as_dict()}))
     _sync(dev)
     wall = time.perf_counter() - t0
-    return _path_result(sim, diags, diags[1:], wall, launch_counts(), dev,
-                        setup_s)
+    result = _path_result(sim, diags, diags[1:], wall, launch_counts(), dev,
+                          setup_s)
+    result["sim"] = sim
+    return result
+
+
+def run_gather_dtype_path(device, res: int, frames: int, f32_pos,
+                          log=print) -> dict:
+    """The bench path under pallas_gather_dtype "bf16", one warm frame and
+    `frames` timed frames -> its result (run_main_path's dict) with
+    `max_abs_diff_from_f32`: the largest difference between its final
+    coordinates and `f32_pos`, those of the same run under "f32" (the
+    "bench" main path at the same `res` and `frames`), each axis sorted by
+    itself (a particle that changes its cell changes the stream's order, so
+    the two states are not compared particle by particle). Fails if the run
+    failed or if the two end equal (the field would then not act)."""
+    result = run_main_path(device, res, frames, log=log,
+                           pallas_gather_dtype="bf16")
+    pos = result.pop("sim").state.pos
+    if pos.shape != f32_pos.shape:
+        result["failures"].append("the two runs hold other particle counts")
+        return result
+    diff = float((pos.sort(dim=0).values
+                  - f32_pos.sort(dim=0).values).abs().max())
+    result["max_abs_diff_from_f32"] = diff
+    if not diff > 0.0:
+        result["failures"].append(
+            "final positions under bf16 equal the f32 run's")
+    return result
 
 
 def _path_result(sim, diags, timed, wall, launches, dev, setup_s) -> dict:
@@ -241,28 +291,6 @@ def _main_path_failures(sim, diags, result, dev) -> list:
 # ---------------------------------------------------------------------------
 # kernel vs plain version, on the card
 # ---------------------------------------------------------------------------
-
-def time_ms(fn, batch_ms: float = 50.0, repeats: int = 3) -> float:
-    """CUDA-event time of one fn() call: after two warm-up calls, the
-    median over `repeats` event pairs, each around as many back-to-back
-    calls as fill about `batch_ms` (1 to 200), divided by that count."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-
-    def batch(count):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(count):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / count
-
-    count = max(1, min(200, int(batch_ms / max(batch(1), 1e-3))))
-    return statistics.median(batch(count) for _ in range(repeats))
-
 
 def bound(bytes_moved: float, flops: float) -> dict:
     """The least time the card could take: the larger of the bytes over the
@@ -448,10 +476,10 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     checks, fchecks = _scatter_checks("", k1, k1_plain, cfg, k1_overflow)
     flops = _P2G_FLOPS_PER_FACE * 54 * n
     records["scatter_p2g_table"] = (
-        checks, lambda: k1(False), lambda: k1_plain(False), None,
+        checks, _times(lambda: k1(False), lambda: k1_plain(False)),
         bound(_nbytes(*args[:4]) + table_bytes, flops))
     records["scatter_p2g_table_folded"] = (
-        fchecks, lambda: k1(True), lambda: k1_plain(True), None,
+        fchecks, _times(lambda: k1(True), lambda: k1_plain(True)),
         bound(_nbytes(*args[:4]) + folded_bytes, flops))
 
     # K2: G2P gather, pass A (2 grids) and pass B (1 grid at midpoints)
@@ -490,14 +518,14 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     # 3 components x (9 for the fractions + per grid 18 faces x (3 weight
     # products + 2 to accumulate)), n_grids = 2
     records["gather_mac"] = (
-        checks, lambda: pp.gather_mac(*args_a),
-        lambda: pp.gather_mac_ref(*args_a), None,
+        checks, _times(lambda: pp.gather_mac(*args_a),
+                       lambda: pp.gather_mac_ref(*args_a)),
         bound(_nbytes(px, py, pz, stream.key, *gu, *gv, *gw) + 24 * n,
               3 * (9 + 2 * 18 * 5) * n))
 
     # K3 / K4 on both solves' fine level shapes, bf16 operator
     down_checks, up_checks = [], []
-    times = {}
+    timed = {}
     for label, lshape in (
             ("pressure", (1,) + tuple(shape)),
             ("viscosity", (3,) + tuple(s + 1 for s in shape))):
@@ -524,16 +552,16 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
             cells = b.numel()
             # DOWN: 3 for x, 14 for A x and r, 1 to pool; UP: 2 for the
             # prolongation, 14 for the residual, 4 for the sweep
-            times["mg_down"] = (
-                lambda: pm.mg_down(d16, l16, b, cfg.mg_omega),
-                lambda: pm.mg_down_ref(d16, l16, b, cfg.mg_omega), None,
+            timed["mg_down"] = (
+                _times(lambda: pm.mg_down(d16, l16, b, cfg.mg_omega),
+                       lambda: pm.mg_down_ref(d16, l16, b, cfg.mg_omega)),
                 bound(_nbytes(d16, *l16, b, xr, rcr), 18 * cells))
-            times["mg_up"] = (
-                lambda: pm.mg_up(*up_args),
-                lambda: pm.mg_up_ref(*up_args), None,
+            timed["mg_up"] = (
+                _times(lambda: pm.mg_up(*up_args),
+                       lambda: pm.mg_up_ref(*up_args)),
                 bound(_nbytes(d16, *l16, b, xr, xc, xr), 20 * cells))
-    records["mg_down"] = (down_checks, *times["mg_down"])
-    records["mg_up"] = (up_checks, *times["mg_up"])
+    records["mg_down"] = (down_checks, *timed["mg_down"])
+    records["mg_up"] = (up_checks, *timed["mg_up"])
 
     # K5 / K6 over two stale orders of the sorted particles: "falling", one
     # CFL substep of the stale path's fall (its regime: every particle
@@ -585,37 +613,302 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
             {"check": f"{label}: coverage", "covered": int(cov6.sum()),
              "particles": n, "ok": bool(cov6.all()) if full
              else bool(cov6.any())}]
-        if full:   # bound to the loop's values of this input
+        if not full:
+            partial = (key5, cov6)   # K7's partly covered random order
+        if full:
             in_bytes = _nbytes(moved, stream.vel, key5, plan.covered,
                                plan.tile_ptr, plan.tile_chunks)
             flops = _P2G_FLOPS_PER_FACE * 54 * covered
+            idx5 = key5.long()
             records["scatter_p2g_table_stale"] = (
-                checks5, lambda k=k5: k(False), lambda k=k5_plain: k(False),
-                None, bound(in_bytes + table_bytes + 4 * n_cells, flops))
+                checks5, _times(lambda: k5(False), lambda: k5_plain(False)),
+                bound(in_bytes + table_bytes + 4 * n_cells, flops))
             records["scatter_p2g_table_stale_folded"] = (
-                checks5f, lambda k=k5: k(True), lambda k=k5_plain: k(True),
-                None, bound(in_bytes + folded_bytes + 4 * n_cells, flops))
+                checks5f, _times(lambda: k5(True), lambda: k5_plain(True)),
+                bound(in_bytes + folded_bytes + 4 * n_cells, flops))
             records["gather_rows8"] = (
-                checks6, lambda a=args6: pp.gather_rows8(*a),
-                lambda a=args6: pp.gather_rows8_ref(*a),
-                lambda k=key5.long(): torch.index_select(corner_table, 0, k),
+                checks6,
+                _times(lambda: pp.gather_rows8(*args6),
+                       lambda: pp.gather_rows8_ref(*args6),
+                       lambda: torch.index_select(corner_table, 0, idx5)),
                 bound(_nbytes(key5, cov6, phi) + 32 * n, 0))
+            del idx5
+
+    records.update(_column_records(stream.key, partial, (gu, gv, gw), shape,
+                                   gen))
 
     out = []
     for fn, source, replaces in KERNELS:
-        checks, kern, plain, library, bnd = records[fn.__name__]
+        checks, times, bnd = records[fn.__name__]
         rec = {
             "name": fn.__name__, "route": "cuda", "source": source,
             "replaces": replaces,
             "max_abs_err": max(c.get("max_abs_err", 0.0) for c in checks),
-            "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(library) if library else None,
-            **bnd,
+            **times, **bnd,
             "ok": all(c["ok"] for c in checks), "checks": checks,
         }
         log(json.dumps(rec))
         out.append(rec)
     return out
+
+
+def _times(kern, plain, library=None) -> dict:
+    """The times of a record, taken while its inputs are alive: the
+    kernel's, the plain version's and, where one PyTorch call computes the
+    same function, that call's."""
+    return {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library) if library else None}
+
+
+def _exact(name, got, want) -> dict:
+    return {"check": name, "ok": bool(torch.equal(got, want))}
+
+
+# particles the revisit probes run over where the whole stream's (N, 128)
+# values would not fit the card beside the images (256^3: 18 GB each)
+PROBE_RUN = 1 << 23
+# bytes the card must have free before the 108-lane image is checked too on
+# a grid whose gather the JAX step splits (at 256^3: the columns 7.2 GB, the
+# image 7.5, the rows twice 15.3, the plain version's W-major copy 7.2)
+_ROOM_FOR_108 = 56e9
+
+
+def _column_records(key_s, partial, grids, shape, gen) -> dict:
+    """The records of K7-K10 for check_kernels: (checks, times, bound).
+
+    K7 on the MAC column image of `grids` (2 grids per component), f32 and
+    bf16, on the sorted keys `key_s` (every particle covered) and on
+    `partial` = (keys in a random order, a partial coverage), torch.equal to
+    gather_rows_ref: below 2^24 cells the 108-lane image at 108 and 54
+    logical columns; from there on the 54-lane image of the first grids (the
+    JAX step splits its gather there) and the 108-lane one only if the card
+    has the room. K8 at F = 108 and F = 3, torch.equal to from_tile_major.
+    K9 and K10 at F = 128 over the first PROBE_RUN sorted keys: K9 within
+    probe.SCATTER_RTOL / SCATTER_ATOL of scatter_revisit_ref and bit-equal
+    between two calls, K10 torch.equal to gather_revisit_ref. The library
+    calls: for K7 one advanced index of the image by (tile, lane slice,
+    cell), held torch.equal to the kernel's rows; for K8 the one
+    contiguous() copy of the permuted view; index_add_ for K9 and
+    index_select for K10."""
+    dev = key_s.device
+    n = key_s.shape[0]
+    n_tiles = (shape[0] * shape[1] * shape[2]) // pp.W
+    large = pp.large_grid(shape)
+    gu, gv, gw = grids
+    records = {}
+    orders = (("sorted, all covered", key_s, None),
+              ("random order, partly covered", *partial))
+    distinct = int(torch.unique(key_s).numel())
+
+    # K7
+    checks, times, bnd = [], None, None
+    t_idx, w_idx = (key_s // pp.W).long(), (key_s % pp.W).long()
+    n_grids = 1 if large else 2
+    lanes = (54 * n_grids, 54)[:n_grids]
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        image = pp.build_mac_columns(gu[:n_grids], gv[:n_grids],
+                                     gw[:n_grids], shape, dtype=dtype)
+        for f in lanes:
+            for label, keys, cov in orders:
+                checks.append(_exact(
+                    f"{tag} image, {f} columns, {label}",
+                    pp.gather_rows(keys, cov, image, f),
+                    pp.gather_rows_ref(keys, cov, image, f)))
+            ms = time_ms(lambda: pp.gather_rows(key_s, None, image, f))
+            checks[-1][f"ms_{tag}_{f}_sorted"] = ms
+        if dtype == torch.float32:
+            f = lanes[0]
+            checks.append(_exact(
+                f"the library call, {tag} image, {f} columns, sorted",
+                image[t_idx, :f, w_idx],
+                pp.gather_rows(key_s, None, image, f)))
+            times = _times(lambda: pp.gather_rows(key_s, None, image, f),
+                           lambda: pp.gather_rows_ref(key_s, None, image, f),
+                           lambda: image[t_idx, :f, w_idx])
+            bnd = bound(4 * n + distinct * f * 4 + n * f * 4, 0)
+        del image
+    if large:
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        if free >= _ROOM_FOR_108:
+            image = pp.build_mac_columns(gu, gv, gw, shape)
+            checks.append(_exact(
+                "f32 image, 108 columns, sorted, all covered",
+                pp.gather_rows(key_s, None, image, 108),
+                pp.gather_rows_ref(key_s, None, image, 108)))
+            checks[-1]["ms_f32_108_sorted"] = time_ms(
+                lambda: pp.gather_rows(key_s, None, image, 108))
+            del image
+        else:
+            checks.append({"check": "f32 image, 108 columns: left out, the "
+                           f"card has {free} B free", "ok": True})
+    records["gather_rows"] = (checks, times, bnd)
+    del t_idx, w_idx
+
+    # K8
+    checks = []
+    nt = pp.tile_counts(shape)
+    for f in (3, 108):
+        y = torch.randn((n_tiles, pp.W, f), generator=gen, device=dev)
+        checks.append(_exact(f"F = {f}", pp.detile(y, shape),
+                             pp.from_tile_major(y, shape)))
+        tiles = y.reshape(*nt, *pp.TILE, f)
+        times = _times(
+            lambda: pp.detile(y, shape),
+            lambda: pp.from_tile_major(y, shape),
+            lambda: tiles.permute(0, 3, 1, 4, 2, 5, 6).contiguous())
+        checks[-1][f"ms_F{f}"] = times["ms"]
+        bnd = bound(2 * _nbytes(y), 0)
+        del y, tiles
+    records["detile"] = (checks, times, bnd)
+
+    # K9 / K10
+    f = probe.F
+    run = min(n, PROBE_RUN)
+    keys = key_s[:run].contiguous()
+    idx = keys.long()
+    covers = f"the first {run} of {n} sorted particles"
+    vals = torch.randn((pp.n_chunks(run), pp.C, f), generator=gen,
+                       device=dev)
+    got = probe.scatter_revisit(keys, vals, n_tiles)
+    checks = [
+        _exact(f"two calls bit-equal, {covers}", got,
+               probe.scatter_revisit(keys, vals, n_tiles)),
+        compare("vs scatter_revisit_ref", got,
+                probe.scatter_revisit_ref(keys, vals, n_tiles),
+                probe.SCATTER_RTOL, probe.SCATTER_ATOL)]
+    del got
+    rows = vals.reshape(-1, f)[:run]
+    times = _times(
+        lambda: probe.scatter_revisit(keys, vals, n_tiles),
+        lambda: probe.scatter_revisit_ref(keys, vals, n_tiles),
+        lambda: torch.zeros((n_tiles * pp.W, f), device=dev).index_add_(
+            0, idx, rows))
+    records["scatter_revisit"] = (
+        checks, times,
+        bound(4 * run + run * f * 4 + n_tiles * pp.W * f * 4, 0))
+    del vals, rows
+
+    cols = torch.randn((n_tiles, pp.W, f), generator=gen, device=dev)
+    checks = [_exact(f"exact, {covers}", probe.gather_revisit(keys, cols),
+                     probe.gather_revisit_ref(keys, cols))]
+    flat = cols.reshape(-1, f)
+    times = _times(lambda: probe.gather_revisit(keys, cols),
+                   lambda: probe.gather_revisit_ref(keys, cols),
+                   lambda: torch.index_select(flat, 0, idx))
+    records["gather_revisit"] = (
+        checks, times,
+        bound(4 * run + int(torch.unique(keys).numel()) * f * 4
+              + pp.n_chunks(run) * pp.C * f * 4, 0))
+    return records
+
+
+def unfused_gather_mac(px, py, pz, keys, grids_u, grids_v, grids_w, dx,
+                       grid_shape, dtype=torch.float32, split: bool = False):
+    """gather_mac's samples by the unfused route, its oracle in the JAX
+    package: build_mac_columns (image of `dtype`) -> gather_rows ->
+    combine_mac_samples -> (3*n_grids, N) f32, rows g*3 + comp as
+    gather_mac's. `split` builds and gathers one 54-lane image per grid, as
+    the JAX step does at >= 2^24 cells, instead of one image of all."""
+    n_grids = len(grids_u)
+    groups = ([slice(g, g + 1) for g in range(n_grids)] if split
+              else [slice(0, n_grids)])
+    out = []
+    for sl in groups:
+        count = len(grids_u[sl])
+        cols = pp.build_mac_columns(grids_u[sl], grids_v[sl], grids_w[sl],
+                                    grid_shape, dtype=dtype)
+        rows = pp.gather_rows(keys, None, cols, 54 * count)
+        del cols
+        us, vs, ws = pp.combine_mac_samples(rows, px, py, pz, keys, dx,
+                                            grid_shape, count)
+        for g in range(count):
+            out += [us[g], vs[g], ws[g]]
+    return torch.stack(out)
+
+
+def check_unfused_route(state, prev, cfg: SimConfig, log=print) -> dict:
+    """On a state after a frame: the state's particles, sorted, sample its
+    velocity grids (grid 0) and `prev` = the (u, v, w) of the frame before
+    (grid 1, standing where the step has its FLIP-saved grids) by
+    unfused_gather_mac (split at >= 2^24 cells) and by K2 gather_mac. Every
+    one of the six sample rows must agree within rtol 1e-5 / atol 1e-6 (what
+    the JAX package holds its fused kernel to against this route), with f32
+    images, and with bf16 images against K2 on grids rounded to bf16. Also
+    times the route's three stages and K2 on the f32 images."""
+    shape, dx = cfg.grid_shape, cfg.dx
+    split = pp.large_grid(shape)
+    stream = pp.tiled_sort(state.pos, state.vel, dx, shape)
+    px, py, pz = (stream.pos[:, a].contiguous() for a in range(3))
+    key = stream.key
+    grids = tuple([a, b] for a, b in zip((state.u, state.v, state.w), prev))
+    checks = []
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        seen = [[g.to(dtype).float() for g in comp] for comp in grids]
+        fused = pp.gather_mac(px, py, pz, key, *seen, dx, shape)
+        route = unfused_gather_mac(px, py, pz, key, *grids, dx, shape,
+                                   dtype=dtype, split=split)
+        checks.append(compare(f"K7 + combine vs K2, {tag} image, max|sample| "
+                              f"{_max_abs(fused):.4g}", route, fused, 1e-5,
+                              1e-6))
+        del seen, fused, route
+    # one image as the route builds it: both grids, or one where it splits
+    part = tuple(comp[:1] if split else comp for comp in grids)
+    count = len(part[0])
+    image = pp.build_mac_columns(*part, shape)
+    rows = pp.gather_rows(key, None, image, 54 * count)
+    rec = {
+        "check": "unfused route", "grid": list(shape),
+        "particles": int(key.shape[0]), "split": split,
+        "images_per_sample": 2 // count,
+        "image_ms": time_ms(lambda: pp.build_mac_columns(*part, shape)),
+        "rows_ms": time_ms(
+            lambda: pp.gather_rows(key, None, image, 54 * count)),
+        "combine_ms": time_ms(lambda: pp.combine_mac_samples(
+            rows, px, py, pz, key, dx, shape, count)),
+        "gather_mac_ms": time_ms(
+            lambda: pp.gather_mac(px, py, pz, key, *grids, dx, shape)),
+        "ok": all(c["ok"] for c in checks), "checks": checks,
+    }
+    rec["route_ms"] = (2 // count) * (rec["image_ms"] + rec["rows_ms"]
+                                      + rec["combine_ms"])
+    log(json.dumps(rec))
+    return rec
+
+
+def run_hw_check(device, res: int = 128, particles: int = BENCH_PARTICLES,
+                 large_res: int = 256, probe_n: int = 262_144,
+                 log=print) -> dict:
+    """The hardware-check path: the three modules of
+    flipviscosity3d_torch/scripts in turn, as their command lines run them:
+    pallas_hw_check at 32^3; gather_smem_check at `res`^3 with `particles`
+    keys and at `large_res`^3 with 8 times as many; gather_perf_probe at
+    `res`^3 with `probe_n` and with `particles` keys. The launch counts are
+    set to 0 just before and read just after. Fails if a check inside a
+    module failed or, on the card, if one of HW_CHECK_KERNELS never
+    launched."""
+    dev = torch.device(device)
+    quiet = lambda line: None   # noqa: E731
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    modules = [
+        pallas_hw_check.run(dev, log=quiet),
+        gather_smem_check.run(dev, res, particles, log=quiet),
+        gather_smem_check.run(dev, large_res, 8 * particles, log=quiet),
+        probe.run(dev, res, probe_n, particles, log=quiet),
+    ]
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for m in modules:
+        log(json.dumps(m))
+    failures = [f"{m['check']} at {m['res']}^3 failed" for m in modules
+                if not m["ok"]]
+    if dev.type == "cuda":
+        failures += [f"kernel {k} was never launched"
+                     for k in HW_CHECK_KERNELS if launches[k] == 0]
+    return {"modules": modules, "launches": launches, "wall_s": wall,
+            "path_kernels": list(HW_CHECK_KERNELS), "failures": failures}
 
 
 # ---------------------------------------------------------------------------

@@ -114,6 +114,30 @@ def test_both_clis_bake_the_same_two_frames(scene, tmp_path, monkeypatch):
     assert len(run.frames) == 2
 
 
+def test_cli_takes_a_scene_with_the_gather_dtype(scene, tmp_path):
+    """A scene file whose config block sets pallas_gather_dtype, as the JAX
+    CLI takes it, runs under the port's CLI and reaches its config; a value
+    outside "f32" / "bf16" is refused before anything is baked."""
+    with open(scene) as f:
+        spec = json.load(f)
+    out = tmp_path / "out"
+    for value in ("bf16", "f16"):
+        spec["config"]["pallas_gather_dtype"] = value
+        path = str(tmp_path / f"scene_{value}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        argv = ["--scene", path, "--device", "cpu", "--frames", "1",
+                "--export", "none", "--output-dir", str(out)]
+        if value == "f16":
+            with pytest.raises(ValueError, match="pallas_gather_dtype"):
+                cli.main(argv)
+        else:
+            run = cli.main(argv)
+            assert run.sim.cfg.pallas_gather_dtype == "bf16"
+            assert len(run.frames) == 1
+            assert run.frames[0].pressure_iterations > 0
+
+
 def test_scene_file_yields_to_explicit_flags(scene):
     """Scene keys fill in the flags left at their defaults; a flag given on
     the command line wins; config, liquid_meshes and invert_boundary stay in

@@ -32,9 +32,9 @@ from flipviscosity3d_torch.ops import mesh_sdf as tmesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# JAX fields with no counterpart in the port: the knobs that only choose a
-# TPU layout or precision (config.py).
-TPU_ONLY = {"pallas_gather_dtype", "pallas_split_terms", "mg_backend"}
+# JAX fields with no counterpart in the port: the knobs that only choose the
+# number of MXU passes or a TPU backend (config.py).
+TPU_ONLY = {"pallas_split_terms", "mg_backend"}
 # The one shared field whose default differs: the JAX package defaults to
 # its table engine, the port to the only engine it has.
 OWN_DEFAULT = {"particle_engine"}
@@ -59,14 +59,15 @@ def test_config_shared_fields_match_jax_defaults():
 @pytest.mark.parametrize("field", [
     "on_bucket_overflow", "mg_operator_dtype", "viscosity_preconditioner",
     "pressure_preconditioner", "pallas_pass_a", "pallas_pass_b",
-    "pallas_pushback"])
+    "pallas_pushback", "pallas_gather_dtype"])
 def test_config_rejects_unknown_enum_values(field):
     with pytest.raises(ValueError):
         SimConfig(**{field: "nonsense"})
 
 
 @pytest.mark.parametrize("field", [
-    "pallas_pass_a", "pallas_pass_b", "pallas_pushback"])
+    "pallas_pass_a", "pallas_pass_b", "pallas_pushback",
+    "pallas_gather_dtype"])
 def test_config_variant_values_match_jax(field):
     """Each visit-plan switch takes JAX's values, and JAX takes the port's
     (the JAX config reaches none of them unless valid in its engine)."""

@@ -12,6 +12,8 @@ import torch
 from flipviscosity3d_torch import smoke
 from flipviscosity3d_torch.ops import pallas_mg as pm
 from flipviscosity3d_torch.ops import pallas_particles as pp
+from flipviscosity3d_torch.scripts import gather_perf_probe as probe
+from flipviscosity3d_torch.scripts import pallas_hw_check
 
 
 @pytest.fixture
@@ -28,7 +30,8 @@ def test_kernels_match_plain_versions(cuda):
     assert [r["name"] for r in records] == [
         "scatter_p2g_table", "gather_mac", "mg_down", "mg_up",
         "scatter_p2g_table_stale", "gather_rows8",
-        "scatter_p2g_table_folded", "scatter_p2g_table_stale_folded"]
+        "scatter_p2g_table_folded", "scatter_p2g_table_stale_folded",
+        "gather_rows", "detile", "scatter_revisit", "gather_revisit"]
     for r in records:
         assert r["ok"], r
         assert r["bound_by"] in ("bytes", "operations")
@@ -39,7 +42,8 @@ def test_kernels_match_plain_versions(cuda):
 def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
     """The three main paths at 32^3 launch the six unfolded kernels; the
     CLI's paths with the large-grid threshold lowered to 32^3
-    launch the two folded ones."""
+    launch the two folded ones; the hardware-check path launches the four
+    kernels of the column path."""
     launched = set()
     for _, dt, lift, overrides in smoke.MAIN_PATHS:
         result = smoke.run_main_path(cuda, 32, 1, dt=dt, lift=lift,
@@ -53,7 +57,74 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
                                       lift=lift, **overrides)
         assert result["failures"] == []
         launched |= {k for k, c in result["launches"].items() if c > 0}
-    assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS}
+    assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:8]}
+    monkeypatch.undo()
+    result = smoke.run_hw_check(cuda, 32, 65_536, 64, 30_000,
+                                log=lambda line: None)
+    assert result["failures"] == []
+    # and K1 once, whose sums pallas_hw_check holds against its oracle
+    assert {k for k, c in result["launches"].items() if c > 0} == {
+        "scatter_p2g_table", *smoke.HW_CHECK_KERNELS}
+
+
+@pytest.mark.gpu
+def test_column_kernels_match_plain_versions(cuda):
+    """K7-K10 against their plain versions at 32^3: K7 on an f32 and a bf16
+    image, 108 of 112 lanes and 54, unsorted keys and a partial coverage;
+    K8 at F = 108, 54 and 3 and on a non-cubic grid; K9 within the probe's
+    tolerance and bit-equal between two calls; K10 exact, its pad rows
+    zero. Exact where the kernel copies."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    shape, n = (32, 32, 32), 100_001
+    n_tiles = 32 ** 3 // pp.W
+    keys = torch.randint(0, 32 ** 3, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    covered = torch.rand(n, generator=gen, device=cuda) < 0.7
+    for dtype in (torch.float32, torch.bfloat16):
+        image = torch.randn((n_tiles, 112, pp.W), generator=gen,
+                            device=cuda).to(dtype)
+        for f in (108, 54):
+            for cov in (None, covered):
+                got = pp.gather_rows(keys, cov, image, f)
+                assert got.dtype == torch.float32
+                assert torch.equal(got, pp.gather_rows_ref(keys, cov, image,
+                                                           f))
+    for grid, f in ((shape, 108), (shape, 54), (shape, 3), ((16, 8, 24), 6)):
+        y = torch.randn((grid[0] * grid[1] * grid[2] // pp.W, pp.W, f),
+                        generator=gen, device=cuda)
+        assert torch.equal(pp.detile(y, grid), pp.from_tile_major(y, grid))
+    key_s = torch.sort(keys).values
+    vals = torch.randn((pp.n_chunks(n), pp.C, probe.F), generator=gen,
+                       device=cuda)
+    out = probe.scatter_revisit(key_s, vals, n_tiles)
+    assert torch.equal(out, probe.scatter_revisit(key_s, vals, n_tiles))
+    torch.testing.assert_close(
+        out, probe.scatter_revisit_ref(key_s, vals, n_tiles),
+        rtol=probe.SCATTER_RTOL, atol=probe.SCATTER_ATOL)
+    cols = torch.randn((n_tiles, pp.W, probe.F), generator=gen, device=cuda)
+    rows = probe.gather_revisit(keys, cols)
+    assert torch.equal(rows, probe.gather_revisit_ref(keys, cols))
+    assert rows.shape[0] == pp.n_chunks(n) * pp.C and not rows[n:].any()
+
+
+@pytest.mark.gpu
+def test_unfused_route_matches_gather_mac_on_the_card(cuda):
+    """build_mac_columns -> K7 -> combine_mac_samples against K2 on a 32^3
+    state after two frames, f32 and bf16 images; and the hardware gate
+    bites on the card: a tampered image fails it."""
+    sim = smoke.bench_scene(cuda, 32)
+    sim.advance(smoke.DT)
+    prev = (sim.state.u, sim.state.v, sim.state.w)
+    sim.advance(smoke.DT)
+    rec = smoke.check_unfused_route(sim.state, prev, sim.cfg,
+                                    log=lambda line: None)
+    assert rec["ok"], rec
+    assert len(rec["checks"]) == 2 and not rec["split"]
+    quiet = dict(log=lambda line: None)
+    assert pallas_hw_check.run(cuda, **quiet)["ok"]
+    assert not pallas_hw_check.run(cuda, tamper=lambda c: c + 1.0,
+                                   **quiet)["ok"]
 
 
 @pytest.mark.gpu
@@ -109,3 +180,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         pp.gather_rows8(key.int(), plan.covered.int(),
                         torch.zeros((9, 9, 9), device=cuda), (8, 8, 8))
+    image = torch.zeros((1, 8, pp.W), device=cuda)
+    with pytest.raises(ValueError):
+        pp.gather_rows(key, None, image)               # int64 keys
+    with pytest.raises(ValueError):
+        pp.gather_rows(key.int(), None, image.half())  # neither f32 nor bf16
+    with pytest.raises(ValueError):
+        pp.gather_rows(key.int(), None, image, 9)      # more than its lanes
+    with pytest.raises(ValueError):
+        pp.detile(torch.zeros((1, pp.W, 3), device=cuda).double(), (8, 8, 8))
+    with pytest.raises(ValueError):
+        probe.scatter_revisit(key.int(), torch.zeros((1, 4, 128),
+                                                     device=cuda), 1)
+    with pytest.raises(ValueError):
+        probe.gather_revisit(key, torch.zeros((1, pp.W, 128), device=cuda))

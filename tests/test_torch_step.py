@@ -166,6 +166,30 @@ def test_pass_b_sort_keeps_jax_order_with_overflowing_table(scene):
     _assert_frames_match(ts, tds, js, jds)
 
 
+def test_gather_dtype_bf16_substep_matches_jax(scene):
+    """One substep from the moving state under pallas_gather_dtype="bf16":
+    the JAX step stores its gather image in bf16, the port rounds the grids
+    it gathers from; element by element at the f32 step test's tolerances
+    (_assert_substep_matches). The rounding acts: the port's own f32 step
+    ends elsewhere. Any other value raises."""
+    base, arrays = scene
+    jcfg = dataclasses.replace(JAX_CFG, pallas_gather_dtype="bf16")
+    cfg = _port_cfg(base, jcfg)
+    assert cfg.pallas_gather_dtype == "bf16"
+    assert base.pallas_gather_dtype == "f32"
+    moving = _moving(arrays)
+    jnew, jd = _jax_substep(moving, 0.01, jcfg)
+    tnew, td = tstep.step(state_from_numpy(moving, "cpu"), DT, cfg)
+    _assert_substep_matches(tnew, td, jnew, jd)
+    fnew, _ = tstep.step(state_from_numpy(moving, "cpu"), DT,
+                         _port_cfg(base, JAX_CFG))
+    assert torch.equal(fnew.u, tnew.u)   # the grids in the state stay f32
+    assert not torch.equal(fnew.pos, tnew.pos)
+    assert not torch.equal(fnew.vel, tnew.vel)
+    with pytest.raises(ValueError, match="pallas_gather_dtype"):
+        dataclasses.replace(base, pallas_gather_dtype="f16")
+
+
 STALE = dict(pallas_pass_a="stale", pallas_pass_b="plan",
              pallas_pushback="kernel", pallas_passa_budget=2,
              pallas_midpoint_budget=2)
@@ -215,7 +239,9 @@ def test_main_path_runs_on_cpu():
     assert result["launches"] == {
         "scatter_p2g_table": 0, "gather_mac": 0, "mg_down": 0, "mg_up": 0,
         "scatter_p2g_table_stale": 0, "gather_rows8": 0,
-        "scatter_p2g_table_folded": 0, "scatter_p2g_table_stale_folded": 0}
+        "scatter_p2g_table_folded": 0, "scatter_p2g_table_stale_folded": 0,
+        "gather_rows": 0, "detile": 0, "scatter_revisit": 0,
+        "gather_revisit": 0}
     assert result["path_kernels"] == [
         "scatter_p2g_table", "gather_mac", "mg_down", "mg_up"]
     assert all(f["viscosity_iterations"] > 0 for f in result["frames"])
