@@ -9,24 +9,27 @@
 2. Builds the CUDA kernels from flipviscosity3d_torch/csrc (one nvcc per
    source, all started together, sm_90a) and prints the build time and
    ptxas' register / spill report.
-3. Holds each of the twelve kernels against its plain PyTorch version on
-   the card, at the bench scene's shapes (128^3 grid, ~4.1M particles; K5
-   and K6 on a fully covered falling order and on a partly covered random
-   one; K1 and K5 in both layouts of their sums, the K-folded one also
-   against the unfolded kernels; K7 gather_rows at 108 and 54 columns of an
-   f32 and a bf16 image, sorted and in a random, partly covered order; K8
-   detile at F = 108 and 3; the revisit probes K9 and K10 at F = 128), and
+3. Holds each of the fourteen kernels against its plain PyTorch version
+   on the card, at the bench scene's shapes (128^3 grid, ~4.1M particles;
+   K5 and K6 on a fully covered falling order and on a partly covered
+   random one; K1 and K5 in both layouts of their sums, the K-folded one
+   also against the unfolded kernels; K7 gather_rows at 108 and 54 columns
+   of an f32 and a bf16 image, sorted and in a random, partly covered
+   order; K8 detile at F = 108 and 3; the revisit probes K9 and K10 at F =
+   128; the prototype's K11 tile_scatter and K12 tile_gather on its own
+   128^3 pool of 4,456,448 particles, cap 16, F = 128), and
    times the kernel, the plain version and, where one exists, the one
    PyTorch call that computes the same function (for K7 one advanced
    index of the image); states each kernel's bound. Then advances that
    scene by two frames and holds the unfused route (build_mac_columns ->
    K7 -> combine_mac_samples) against K2 gather_mac on its particles and
    grids, with f32 and with bf16 images.
-4. Drives three main paths through FluidSimulation() on the card, each
-   with the launch counts set to 0 just before it and read just after:
-   - "bench": the bench scene under the JAX package's default engine
-     (pass A "sort", pass B "plan", pushback "gather"), one warm frame and
-     5 frames of dt = 0.01;
+4. Drives three main paths of the "pallas" engine through
+   FluidSimulation() on the card, each with the launch counts set to 0
+   just before it and read just after:
+   - "bench": the bench scene under BENCH_DEFAULT's engine, "pallas", with
+     its default variants (pass A "sort", pass B "plan", pushback
+     "gather"), one warm frame and 5 frames of dt = 0.01;
    - "stale": the same pool lifted by 0.43 in y, so that it falls, under
      pass A "stale", pass B "plan" and pushback "kernel", one warm frame
      and 5 frames of dt = 0.04 (several substeps per frame, so that stale
@@ -34,14 +37,24 @@
    - "bench_sort": the bench run with pass B "sort" (a re-sort by
      midpoint key instead of the midpoint plan);
    printing each frame's diagnostics (substeps, stale substeps, overflow,
-   iterations), substeps/s, peak memory and the launch counts. A path fails
-   if one of its kernels was never launched or a residual missed its
-   tolerance. Then two more:
+   iterations, residuals and tolerances), substeps/s, peak memory and the
+   launch counts. A path fails if one of its kernels was never launched or
+   a residual missed its tolerance. Then the bench run on the JAX
+   package's two other engines, one warm frame and 5 timed each:
+   - "table": particle_engine "table" (the JAX default), whose substeps
+     launch only the V-cycle's kernels (K3, K4) and must launch them;
+   - "stream": particle_engine "stream", the same;
+   then three more:
    - "hw_check": the three hardware checks of flipviscosity3d_torch/scripts
      in turn (pallas_hw_check at 32^3; gather_smem_check at 128^3 with
      4,111,806 keys and at 256^3 with 8 times as many; gather_perf_probe at
      262,144 and 4,111,806 keys), one JSON line per module; fails if a check
      inside failed or K7, K8, K9 or K10 never launched;
+   - "proto": the round-1 prototype module
+     (flipviscosity3d_torch/scripts/pallas_particle_proto.py) as its command
+     line runs it: its checks at 16^3, then the sort, K11, K12 and its two
+     PyTorch baselines timed at 128^3; fails if a check failed or K11 or
+     K12 never launched;
    - "bench_bf16": the bench run again under pallas_gather_dtype "bf16";
      fails unless its residuals hold and its final positions differ from
      those of "bench", the same run under "f32".
@@ -57,15 +70,22 @@
      folded K1 ran and the unfolded K1 did not. One more frame of the same
      simulation then runs under torch.profiler (device busy time over wall
      time, and the largest device rows), and on its final state step 3 is
-     repeated at the 256^3 shapes: all twelve kernels against their plain
-     versions (257^3 levels, ~35.5M particles; the plain scatters add
-     their values in 16 runs of particles, to fit the card; K7 on the
+     repeated at the 256^3 shapes: all fourteen kernels against their
+     plain versions (257^3 levels, ~35.5M particles; the plain scatters
+     add their values in 16 runs of particles, to fit the card; K7 on the
      54-lane image, as the JAX step splits its gather there, and on the
      108-lane one if the card has the room; K9 and K10 over the first 2^23
-     particles), timed there, and the unfused route against K2 again;
+     particles; K11 and K12 over the first 2^23 particles of the
+     prototype's 256^3 pool), timed there, and the unfused route against
+     K2 again;
    - "stale256": the lifted pool at 256^3 under stale / plan / kernel, one
      warm frame and 2 frames of dt = 0.04; fails unless the folded K5 and
-     K6 ran.
+     K6 ran;
+   - "table256": the bench scene at 256^3 from a scene file whose config
+     names no particle engine and a bucket_capacity of 12 (what
+     scenes/highres_bunny.json gives, the pool standing in for its mesh),
+     one warm frame and 2 frames of dt = 0.01; fails unless the run's
+     config says "table" (the default) and K3 and K4 ran.
 6. Prints the card line, one JSON line of kernel records, and as its last
    line {"ok": true, "device": {...}} when every check held; otherwise
    prints what failed and exits 1.
@@ -83,6 +103,7 @@ RES = 128
 FRAMES = 5
 LARGE_RES = 256
 SCENE_DIR = os.path.join(ROOT, "build", "smoke_scenes")
+TABLE256 = dict(particle_engine=None, bucket_capacity=12)
 RECORD_KEYS = ("name", "route", "source", "replaces", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -155,6 +176,10 @@ def main() -> int:
             "bucket_overflow": result["bucket_overflow"],
             "iterations": [[f["pressure_iterations"],
                             f["viscosity_iterations"]] for f in frames],
+            "residuals": [[f["pressure_residual"], f["pressure_tolerance"],
+                           f["viscosity_residual"],
+                           f["viscosity_tolerance"]] for f in frames],
+            "liquid_cells": [f["liquid_cells"] for f in frames],
             "plan_demand": [f["plan_demand"] for f in frames],
             "uncovered": [[f["uncovered_pass_a"], f["uncovered_pass_b"],
                            f["uncovered_pushback"]] for f in frames],
@@ -175,19 +200,31 @@ def main() -> int:
             bench_pos = pos   # the f32 run that "bench_bf16" is held against
         del pos
         report(name, result)
+    for name, dt, lift, overrides in smoke.ENGINE_PATHS:
+        result = smoke.run_main_path("cuda", RES, FRAMES, dt=dt, lift=lift,
+                                     **overrides)
+        del result["sim"]
+        report(name, result)
+
+    def report_checks(name, result, lines):
+        """Print a check path's result `lines` and summary; count its
+        failures and launches."""
+        for line in lines:
+            print(json.dumps({**line, "card": card}), flush=True)
+        failures.extend(f"path {name}: {f}" for f in result["failures"])
+        for k in launches:
+            launches[k] += result["launches"][k]
+        print(json.dumps({"path": name, "wall_s": result["wall_s"],
+                          "launches": result["launches"],
+                          "path_kernels": result["path_kernels"],
+                          "card": card}), flush=True)
+        torch.cuda.empty_cache()
 
     result = smoke.run_hw_check("cuda", RES, large_res=LARGE_RES,
                                 log=lambda _: None)
-    for m in result["modules"]:
-        print(json.dumps({**m, "card": card}), flush=True)
-    failures.extend(f"path hw_check: {f}" for f in result["failures"])
-    for k in launches:
-        launches[k] += result["launches"][k]
-    print(json.dumps({"path": "hw_check", "wall_s": result["wall_s"],
-                      "launches": result["launches"],
-                      "path_kernels": result["path_kernels"],
-                      "card": card}), flush=True)
-    torch.cuda.empty_cache()
+    report_checks("hw_check", result, result["modules"])
+    result = smoke.run_proto("cuda", RES, log=lambda _: None)
+    report_checks("proto", result, [result["result"]])
 
     result = smoke.run_gather_dtype_path("cuda", RES, FRAMES, bench_pos)
     del bench_pos
@@ -233,6 +270,19 @@ def main() -> int:
                                   2, dt=dt, lift=lift, **overrides)
     del result["run"]
     report("stale256", result)
+    del result
+    torch.cuda.empty_cache()
+
+    result = smoke.run_scene_path("cuda", SCENE_DIR, "table256", LARGE_RES,
+                                  2, **TABLE256)
+    del result["run"]
+    print(json.dumps({"path": "table256", "engine": result["engine"],
+                      "scene_names_an_engine": False}), flush=True)
+    if result["engine"] != "table":
+        result["failures"].append(
+            f"the run's config says {result['engine']!r}, not the default "
+            "\"table\"")
+    report("table256", result)
     del result
     torch.cuda.empty_cache()
 

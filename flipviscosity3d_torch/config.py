@@ -2,47 +2,66 @@
 
 Every physics and solver field of flipviscosity3d_tpu.config.SimConfig is
 kept here with the same name and default, so that one scene description
-drives both packages. The port runs the JAX "pallas" particle engine, and
-its three visit-plan switches are fields here with the JAX names, defaults
-and value sets:
+drives both packages the same way. particle_engine picks one of the JAX
+package's three particle engines, with its values and its default:
 
-- pallas_pass_a: "sort" re-sorts the particles by tile-major home-cell key
-  every substep; "stale" keeps the previous substep's order, re-sorts only
-  every pallas_resort_every substeps (and on the first substep of every
-  frame), and computes the in-cell ranks inside the scatter kernel;
-  particles beyond their chunk's pallas_passa_budget distinct tiles skip
-  the substep's grid transfers (counted in bucket_overflow);
-- pallas_pass_b: "plan" (the default, the bench's) samples the RK2
-  midpoints in pass-A order through a midpoint visit plan and advects
-  uncovered midpoints ballistically (counted); "sort" re-sorts by midpoint
-  key and samples every midpoint;
-- pallas_pushback: "gather" reads the node SDF corners of every particle;
-  "kernel" reads them through a visit plan, and uncovered particles skip
-  the pushback for one substep (counted).
+- "table" (the default): per pass, a stable sort by i-major home cell and
+  fixed-capacity (bucket_capacity, n_cells) slot tables; every transfer is
+  a dense per-slot reduction or sample (ops/buckets.py,
+  ops/particle_grid.py). Pass A buckets by position, pass B by RK2
+  midpoint; a particle beyond its cell's capacity in a pass skips that
+  pass's grid transfer and moves ballistically (counted in
+  bucket_overflow). Particles leave a substep in table B's sorted order.
+  sdf_capacity does not apply.
+- "stream": one stable sort per substep; P2G sums and SDF mins as segment
+  reductions over the sorted stream, samples as row gathers of per-cell
+  columns (ops/stream.py, ops/stream_transfers.py). No capacity, no
+  overflow. Particles leave a substep in pass A's stream order.
+- "pallas": the tile-major engine of ops/pallas_particles.py, whose
+  scatters and gathers are the CUDA kernels of csrc/. Its grid must tile
+  into 8x8x8 blocks; the SDF slot table holds sdf_capacity particles per
+  cell (None: bucket_capacity). Its three visit-plan switches are fields
+  here with the JAX names, defaults and value sets:
+  - pallas_pass_a: "sort" re-sorts the particles by tile-major home-cell
+    key every substep; "stale" keeps the previous substep's order,
+    re-sorts only every pallas_resort_every substeps (and on the first
+    substep of every frame), and computes the in-cell ranks inside the
+    scatter kernel; particles beyond their chunk's pallas_passa_budget
+    distinct tiles skip the substep's grid transfers (counted in
+    bucket_overflow);
+  - pallas_pass_b: "plan" (the default) samples the RK2 midpoints in
+    pass-A order through a midpoint visit plan and advects uncovered
+    midpoints ballistically (counted); "sort" re-sorts by midpoint key and
+    samples every midpoint;
+  - pallas_pushback: "gather" reads the node SDF corners of every
+    particle; "kernel" reads them through a visit plan, and uncovered
+    particles skip the pushback for one substep (counted).
 
-particle_engine is a field so that one scene file's `config` block serves
-both packages' CLIs. The port has the "pallas" engine only, which is its
-default (the JAX default is "table"); "table" and "stream" raise, naming
-the engine. pallas_split_gather (True, False or None) is taken for the same
-reason and changes nothing: in the JAX package it halves the lane width of
-pass A's gather image (two launches of one grid each instead of one of
-two), a choice of memory layout. The port's gather reads the velocity grids
-directly and has no image, so two launches would give the same samples bit
-for bit while reading the positions and keys twice: pass A always gathers
-both grids in one launch.
+The "table" and "stream" engines were plain XLA in the JAX package and are
+plain PyTorch here; their V-cycles run through the mg_down / mg_up kernels
+on the card like the "pallas" engine's.
+
+pallas_split_gather (True, False or None) is taken so that one scene
+file's `config` block serves both packages' CLIs, and changes nothing: in
+the JAX package it halves the lane width of pass A's gather image (two
+launches of one grid each instead of one of two), a choice of memory
+layout. The port's gather reads the velocity grids directly and has no
+image, so two launches would give the same samples bit for bit while
+reading the positions and keys twice: pass A always gathers both grids in
+one launch.
 
 fold_sums (the K-folded sums of the scatter at >= 2^24 cells) is no field
 here, as it is none in the JAX package: the scatter decides by the grid
 size itself (ops/pallas_particles.py).
 
 pallas_gather_dtype ("f32", the default, or "bf16") is a field because it
-changes what the step computes: under "bf16" the JAX step stores the column
-image that G2P and the midpoint sample read in bf16, so every sample is
-taken from grid values rounded to bf16 (round to nearest even) before the
-f32 trilinear combine. The port's gather reads the velocity grids
-directly, so under "bf16" the step rounds the six grids that way before
-its two gathers (core/step.py); the grids kept in the state stay f32. Any
-other value raises.
+changes what the "pallas" engine's step computes: under "bf16" the JAX
+step stores the column image that G2P and the midpoint sample read in
+bf16, so every sample is taken from grid values rounded to bf16 (round to
+nearest even) before the f32 trilinear combine. The port's gather reads
+the velocity grids directly, so under "bf16" the step rounds the six grids
+that way before its two gathers (core/step.py); the grids kept in the
+state stay f32. Any other value raises.
 
 The knobs that only choose the number of MXU passes or a TPU backend are
 not fields here, since they change nothing the port computes:
@@ -56,7 +75,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-PARTICLE_ENGINES = ("table", "stream", "pallas")   # the JAX package's
+PARTICLE_ENGINES = ("table", "stream", "pallas")
 
 _ENUMS = {
     "on_bucket_overflow": ("fallback", "error"),
@@ -98,14 +117,18 @@ class SimConfig:
     viscosity_solve_rtol: float = 1e-6
     viscosity_acceptable_error: float = 10.0
 
-    # The particle engine; only "pallas" is ported (module docstring).
-    particle_engine: str = "pallas"
+    # The particle engine: "table", "stream" or "pallas" (module docstring).
+    particle_engine: str = "table"
 
-    # Particles tracked per cell in the liquid-SDF slot table. The P2G sums
-    # take every particle; particles of in-cell rank >= capacity are left out
-    # of the SDF table only, and counted in bucket_overflow.
+    # "table": particles tracked per cell in each pass's slot tables; a
+    # particle of in-cell rank >= capacity skips that pass's transfer.
+    # "pallas": the liquid-SDF slot table's capacity unless sdf_capacity is
+    # set; its P2G sums take every particle, and particles of rank >=
+    # capacity are left out of the SDF table only. Either way the particles
+    # left out are counted in bucket_overflow. "stream" has no capacity.
     bucket_capacity: int = 24
-    # Liquid-SDF table capacity; None -> bucket_capacity.
+    # The "pallas" engine's liquid-SDF table capacity; None ->
+    # bucket_capacity. The "table" engine ignores it.
     sdf_capacity: int | None = None
     # "error" makes FluidSimulation.advance raise when a frame reports
     # bucket_overflow > 0; "fallback" accepts it.
@@ -151,10 +174,6 @@ class SimConfig:
             raise ValueError(
                 f"particle_engine must be one of {PARTICLE_ENGINES}, got "
                 f"{self.particle_engine!r}")
-        if self.particle_engine != "pallas":
-            raise ValueError(
-                f"particle_engine {self.particle_engine!r} is not ported to "
-                "flipviscosity3d_torch yet; it runs \"pallas\" only")
         for name, allowed in _ENUMS.items():
             if getattr(self, name) not in allowed:
                 raise ValueError(

@@ -203,10 +203,15 @@ class FluidSimulation:
         self._state, diag = step_mod.advance(state, float(dt), self.cfg)
         self.last_diagnostics = diag
         if self.cfg.on_bucket_overflow == "error" and diag.bucket_overflow:
+            cfg = self.cfg
+            where = (f"bucket_capacity={cfg.bucket_capacity}"
+                     if cfg.particle_engine == "table"
+                     else f"the SDF table capacity {cfg.sdf_cap} or a visit "
+                     "plan")
             raise RuntimeError(
-                f"bucket overflow: {diag.bucket_overflow} particles exceeded "
-                f"the SDF table capacity {self.cfg.sdf_cap}; raise "
-                "bucket_capacity or accept on_bucket_overflow='fallback'")
+                f"bucket overflow: {diag.bucket_overflow} particle-pass "
+                f"slots exceeded {where}; raise bucket_capacity or accept "
+                "the ballistic fallback (on_bucket_overflow='fallback')")
         return diag
 
     @property

@@ -1,14 +1,25 @@
 """The FLIP substep and the CFL-driven advance loop.
 
 Counterpart of flipviscosity3d_tpu/core/step.py (reference
-fluidsimulation.cpp:135-168) on the one particle engine the port has, the
-JAX "pallas" engine (`_step_pallas`), with its three visit-plan switches
-(config.py): pass A "sort" or "stale", pass B "plan" or "sort", pushback
-"gather" or "kernel". At >= 2^24 cells the scatter folds its sums and the
-face combine runs in slabs, each by the JAX package's own rule. The
-particles leave every substep in the JAX package's order: the order decides
-which particles a visit plan covers and which fill the SDF table, so it is
-part of the result.
+fluidsimulation.cpp:135-168) on the JAX package's three particle engines
+(cfg.particle_engine, config.py):
+
+- "table" (the default): pass A buckets the particles by position into
+  (bucket_capacity, n_cells) tables for the fused P2G + SDF sweep and G2P,
+  pass B by RK2 midpoint for the stage-2 sample (`_step_table`);
+- "stream": one sort per substep, P2G and SDF as segment reductions, the
+  samples as row gathers (`_step_stream`);
+- "pallas": the tile-major engine whose scatters and gathers are the CUDA
+  kernels of csrc/ (`_step_pallas`), with its three visit-plan switches:
+  pass A "sort" or "stale", pass B "plan" or "sort", pushback "gather" or
+  "kernel". At >= 2^24 cells the scatter folds its sums and the face
+  combine runs in slabs, each by the JAX package's own rule.
+
+Every engine shares the grid update (`_grid_update`: both solves) and the
+clamp -> pushback -> clamp. The particles leave every substep in the JAX
+package's order for that engine (table B's sorted order, pass A's stream,
+or the pallas engine's stream): the order decides which particles a table
+or a visit plan holds, so it is part of the result.
 
 The advance loop runs on the host: one read of max|u| from the card per
 substep gives the CFL substep, with the same f32 arithmetic as the JAX
@@ -24,7 +35,9 @@ import torch
 
 from ..config import SimConfig
 from ..ops import pallas_particles as pp
-from ..ops.buckets import cell_of_position
+from ..ops import particle_grid as pg
+from ..ops import stream_transfers as st
+from ..ops.buckets import build_buckets, cell_of_position, gather_results
 from ..ops.extrapolate import extrapolate_velocity_field
 from ..ops.grids import (
     face_borders_fluid_u,
@@ -32,6 +45,7 @@ from ..ops.grids import (
     face_borders_fluid_w,
 )
 from ..ops.particle_grid import liquid_sdf_from_particles
+from ..ops.stream import stream_sort
 from ..ops.stream_transfers import pushback_from_corners, solid_pushback_at
 from ..solvers import pressure as psolver
 from ..solvers import viscosity as vsolver
@@ -142,9 +156,10 @@ def _gather_grids(cfg: SimConfig, *grids):
 
 def runs_stale(cfg: SimConfig, substep_idx) -> bool:
     """Whether substep `substep_idx` (None for 0) keeps the previous
-    substep's particle order: pass A "stale", except on every
-    pallas_resort_every-th substep."""
-    return (cfg.pallas_pass_a == "stale"
+    substep's particle order: the "pallas" engine's pass A "stale", except
+    on every pallas_resort_every-th substep."""
+    return (cfg.particle_engine == "pallas"
+            and cfg.pallas_pass_a == "stale"
             and (substep_idx or 0) % cfg.pallas_resort_every != 0)
 
 
@@ -174,16 +189,152 @@ def _pass_a(state: SimState, cfg: SimConfig, substep_idx):
             pp.table_rank_overflow(counts, cap))
 
 
-def step(state: SimState, dt: float, cfg: SimConfig, substep_idx=None):
-    """One CFL substep: pass A (P2G scatter + SDF table, grid update, G2P
-    gather), pass B (stage-2 sample at the RK2 midpoints), clamp, solid
-    pushback, clamp, under cfg's pallas_pass_a / pallas_pass_b /
-    pallas_pushback variants. `dt` is a Python float holding an f32 value;
-    `substep_idx` (the advance loop's counter, None for 0) sets the stale
-    pass A's re-sort cadence. Returns (state, diagnostics pieces)."""
+def _pic_flip(cfg: SimConfig, new, old, own):
+    """The PIC/FLIP velocity update (fluidsimulation.cpp:341-352) of one
+    component: r * new + (1 - r) * (own + new - old), r in f32."""
+    r = np.float32(cfg.ratio_pic_flip)
+    r, s = float(r), float(np.float32(1.0) - r)
+    return r * new + s * (own + new - old)
+
+
+def _inside(mx, my, mz, shape, dx):
+    """Whether positions lie in the domain box [0, n * dx) on every axis."""
+    return ((mx >= 0) & (mx < shape[0] * dx)
+            & (my >= 0) & (my < shape[1] * dx)
+            & (mz >= 0) & (mz < shape[2] * dx))
+
+
+def _clamp_and_push_back(fnp, solid, cfg: SimConfig):
+    """Clamp, push out of solids through one (N, 8) row gather of the node
+    SDF keyed by the clamped home cell (every particle), clamp again ->
+    (N, 3) positions."""
+    dx, shape = cfg.dx, cfg.grid_shape
+    lo, his = _clamp_bounds(cfg)
+    cp = [torch.clamp(p, lo, hi) for p, hi in zip(fnp, his)]
+    key_c = cell_of_position(torch.stack(cp, dim=1), dx, shape)
+    dp = solid_pushback_at(*cp, key_c, solid.phi, dx, shape)
+    return torch.stack([torch.clamp(c + d, lo, hi)
+                        for c, d, hi in zip(cp, dp, his)], dim=1)
+
+
+def _step_table(state: SimState, dt: float, cfg: SimConfig):
+    """One CFL substep on the bucket-table engine: pass A buckets by
+    position (P2G + SDF sweep, grid update, G2P over the tables), pass B by
+    RK2 midpoint (stage-2 sample), then clamp + pushback. A particle left
+    out of table A keeps its own velocity and the midpoint p + dt/2 v; one
+    left out of table B keeps its own velocity for the stage-2 step. The
+    particles leave in table B's sorted order."""
+    dx, shape, cap = cfg.dx, cfg.grid_shape, cfg.bucket_capacity
+    solid = state.solid
+
+    # ---------------- PASS A: bucket by position ----------------
+    table_a = build_buckets(
+        state.pos, tuple(state.pos.unbind(dim=1)) + tuple(
+            state.vel.unbind(dim=1)), dx, shape, cap)
+    liquid_phi, p2g_sums = pg.p2g_and_sdf(
+        table_a, shape, dx, cfg.particle_radius, solid.center_phi,
+        (cfg.u_shape, cfg.v_shape, cfg.w_shape))
+
+    (u, v, w), (su, sv, sw), solver_diag = _grid_update(
+        state, liquid_phi, p2g_sums, dt, cfg)
+
+    # ---------------- G2P + advection over table A ----------------
+    new_t = pg.sample_mac_at_table(table_a, u, v, w, dx)
+    old_t = pg.sample_mac_at_table(table_a, su, sv, sw, dx)
+    own_t = table_a.fields[3:6]
+    vel_t = [_pic_flip(cfg, n_, o_, p_)
+             for n_, o_, p_ in zip(new_t, old_t, own_t)]
+    # RK2 stage 1: midpoint from the grid velocity (fluidsimulation.cpp:535)
+    half = 0.5 * dt
+    mid_t = [p + half * n_ for p, n_ in zip(table_a.fields[0:3], new_t)]
+    del new_t, old_t
+
+    spx, spy, spz, svx, svy, svz = table_a.sorted
+    flat = gather_results(
+        table_a, (*vel_t, *mid_t),
+        fallbacks=(svx, svy, svz,
+                   spx + half * svx, spy + half * svy, spz + half * svz))
+    fvel_x, fvel_y, fvel_z, fmx, fmy, fmz = flat
+    overflow = table_a.n_overflow
+    del table_a, vel_t, mid_t, flat
+
+    # ---------------- PASS B: bucket by midpoint ----------------
+    # only the midpoints enter tables; the positions and stage-1
+    # velocities ride the sort
+    table_b = build_buckets(
+        torch.stack([fmx, fmy, fmz], dim=1),
+        (fmx, fmy, fmz, spx, spy, spz, fvel_x, fvel_y, fvel_z),
+        dx, shape, cap, n_table_fields=3)
+    inside_m = _inside(*table_b.fields[0:3], shape, dx)
+    v2_t = pg.sample_mac_at_table(table_b, u, v, w, dx, inside_m)
+    del inside_m
+    _, _, _, sbpx, sbpy, sbpz, sbvx, sbvy, sbvz = table_b.sorted
+    # overflow falls back to the particle's own (ballistic) velocity
+    fv2 = gather_results(table_b, v2_t, fallbacks=(sbvx, sbvy, sbvz))
+    fnp = [p + dt * vv for p, vv in zip((sbpx, sbpy, sbpz), fv2)]
+    overflow = overflow + table_b.n_overflow
+    del table_b, v2_t, fv2
+
+    new_state = state.replace(
+        pos=_clamp_and_push_back(fnp, solid, cfg),
+        vel=torch.stack([sbvx, sbvy, sbvz], dim=1), u=u, v=v, w=w)
+    return new_state, dict(bucket_overflow=overflow, **solver_diag)
+
+
+def _step_stream(state: SimState, dt: float, cfg: SimConfig):
+    """One CFL substep on the sorted-stream engine: pass A's one sort, P2G
+    and SDF as segment reductions, G2P and the stage-2 sample as row
+    gathers, then clamp + pushback. No capacity, no overflow; the particles
+    leave in pass A's stream order."""
+    dx, shape = cfg.dx, cfg.grid_shape
+    solid = state.solid
+
+    # ---------------- PASS A: the substep's one sort ----------------
+    stream = stream_sort(
+        state.pos, tuple(state.pos.unbind(dim=1)) + tuple(
+            state.vel.unbind(dim=1)), dx, shape)
+    spx, spy, spz, svx, svy, svz = stream.sorted
+    liquid_phi, p2g_sums = st.p2g_sdf_stream(
+        stream, shape, dx, cfg.particle_radius, solid.center_phi,
+        (cfg.u_shape, cfg.v_shape, cfg.w_shape))
+
+    (u, v, w), (su, sv, sw), solver_diag = _grid_update(
+        state, liquid_phi, p2g_sums, dt, cfg)
+
+    # ---------------- G2P + advection ----------------
+    # one row gather serves the new and the FLIP-saved fields
+    (nu, ou), (nv, ov), (nw, ow) = st.sample_mac_at(
+        spx, spy, spz, stream.key, [u, su], [v, sv], [w, sw], dx, shape)
+    vel = [_pic_flip(cfg, n_, o_, p_)
+           for n_, o_, p_ in zip((nu, nv, nw), (ou, ov, ow), (svx, svy, svz))]
+    half = 0.5 * dt
+    mx = spx + half * nu
+    my = spy + half * nv
+    mz = spz + half * nw
+    del stream, ou, ov, ow
+
+    # ---------------- stage 2 at the midpoints (no re-sort) -------------
+    key_m = cell_of_position(torch.stack([mx, my, mz], dim=1), dx, shape)
+    (v2x,), (v2y,), (v2z,) = st.sample_mac_at(
+        mx, my, mz, key_m, [u], [v], [w], dx, shape,
+        valid=_inside(mx, my, mz, shape, dx))
+    fnp = [p + dt * vv for p, vv in zip((spx, spy, spz), (v2x, v2y, v2z))]
+
+    new_state = state.replace(
+        pos=_clamp_and_push_back(fnp, solid, cfg),
+        vel=torch.stack(vel, dim=1), u=u, v=v, w=w)
+    zero = torch.zeros((), dtype=torch.int64, device=state.pos.device)
+    return new_state, dict(bucket_overflow=zero, **solver_diag)
+
+
+def _step_pallas(state: SimState, dt: float, cfg: SimConfig,
+                 substep_idx=None):
+    """One CFL substep on the tile-major engine: pass A (P2G scatter + SDF
+    table, grid update, G2P gather), pass B (stage-2 sample at the RK2
+    midpoints), clamp, solid pushback, clamp, under cfg's pallas_pass_a /
+    pallas_pass_b / pallas_pushback variants."""
     dx = cfg.dx
     shape = cfg.grid_shape
-    pp.check_grid(shape)
     solid = state.solid
     cap = cfg.sdf_cap
 
@@ -218,11 +369,9 @@ def step(state: SimState, dt: float, cfg: SimConfig, substep_idx=None):
         nu, ou = (torch.where(covered_a, g, svx) for g in (nu, ou))
         nv, ov = (torch.where(covered_a, g, svy) for g in (nv, ov))
         nw, ow = (torch.where(covered_a, g, svz) for g in (nw, ow))
-    r = np.float32(cfg.ratio_pic_flip)
-    r, s = float(r), float(np.float32(1.0) - r)
-    vel_x = r * nu + s * (svx + nu - ou)
-    vel_y = r * nv + s * (svy + nv - ov)
-    vel_z = r * nw + s * (svz + nw - ow)
+    vel_x = _pic_flip(cfg, nu, ou, svx)
+    vel_y = _pic_flip(cfg, nv, ov, svy)
+    vel_z = _pic_flip(cfg, nw, ow, svz)
 
     # RK2 stage 1 midpoint from the grid velocity (fluidsimulation.cpp:535)
     half = 0.5 * dt
@@ -245,9 +394,7 @@ def step(state: SimState, dt: float, cfg: SimConfig, substep_idx=None):
         key_m, fields = pp.sort_by_key(key_m, fields)
     bmx, bmy, bmz, bpx, bpy, bpz, bvx, bvy, bvz = fields
     gmb = pp.gather_mac(bmx, bmy, bmz, key_m, [gu], [gv], [gw], dx, shape)
-    inside_m = ((bmx >= 0) & (bmx < shape[0] * dx)
-                & (bmy >= 0) & (bmy < shape[1] * dx)
-                & (bmz >= 0) & (bmz < shape[2] * dx))
+    inside_m = _inside(bmx, bmy, bmz, shape, dx)
     zero = torch.zeros_like(bmx)
     v2 = [torch.where(inside_m, gmb[c], zero) for c in range(3)]
     if sample_ok is not None:
@@ -288,6 +435,21 @@ def step(state: SimState, dt: float, cfg: SimConfig, substep_idx=None):
     demand = dict(plan_visits=torch.stack(visits).max()) if visits else {}
     return new_state, dict(bucket_overflow=overflow, **uncovered, **demand,
                            **solver_diag)
+
+
+def step(state: SimState, dt: float, cfg: SimConfig, substep_idx=None):
+    """One CFL substep (the body of the reference's advance loop,
+    fluidsimulation.cpp:144-166) on cfg.particle_engine. `dt` is a Python
+    float holding an f32 value; `substep_idx` (the advance loop's counter,
+    None for 0) sets the "pallas" engine's stale pass-A re-sort cadence.
+    Only the "pallas" engine needs a grid of whole 8x8x8 tiles. Returns
+    (state, diagnostics pieces)."""
+    if cfg.particle_engine == "stream":
+        return _step_stream(state, dt, cfg)
+    if cfg.particle_engine == "pallas":
+        pp.check_grid(cfg.grid_shape)
+        return _step_pallas(state, dt, cfg, substep_idx)
+    return _step_table(state, dt, cfg)
 
 
 def advance(state: SimState, dt: float, cfg: SimConfig):

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .buckets import run_ranks
 from .grids import shifted_read
 from .stream_transfers import NODE_CORNERS
 
@@ -124,23 +125,12 @@ class TiledStream:
     vel: torch.Tensor    # (N,3) sorted velocities
 
 
-def _run_rank(key_s):
-    """In-cell rank of each element of sorted keys: its distance from the
-    start of its run of equal keys."""
-    n = key_s.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=key_s.device)
-    new_run = torch.ones(n, dtype=torch.bool, device=key_s.device)
-    new_run[1:] = key_s[1:] != key_s[:-1]
-    run_start = torch.cummax(
-        torch.where(new_run, idx, torch.zeros_like(idx)), dim=0).values
-    return idx - run_start
-
-
 def tiled_sort(pos, vel, dx, grid_shape) -> TiledStream:
     """One stable sort per substep plus the in-cell rank by run starts."""
     key = key_of_position(pos, dx, grid_shape)
     key_s, perm = torch.sort(key, stable=True)
-    return TiledStream(key_s, _run_rank(key_s), pos[perm], vel[perm])
+    return TiledStream(key_s, run_ranks(key_s, torch.int32), pos[perm],
+                       vel[perm])
 
 
 def sort_by_key(key, fields):
@@ -432,7 +422,7 @@ def scatter_p2g_table_stale_ref(pos, vel, key, covered, grid_shape, dx,
     key_c = key[covered]
     key_s, perm = torch.sort(key_c, stable=True)
     rank = torch.empty_like(key_s, dtype=torch.int32)
-    rank[perm] = _run_rank(key_s)
+    rank[perm] = run_ranks(key_s, torch.int32)
     sums, table = scatter_p2g_table_ref(pos[covered], vel[covered], key_c,
                                         rank, grid_shape, dx, cap, fold_sums,
                                         slabs)

@@ -24,6 +24,14 @@ frame, build_mac_columns -> K7 -> combine_mac_samples against K2.
 `run_gather_dtype_path` runs the bench path under pallas_gather_dtype
 "bf16" and holds its final state apart from the f32 run's.
 
+The "table" and "stream" engines (ENGINE_PATHS) run the bench scene
+through run_main_path too; their substeps launch no particle kernel, only
+the V-cycle's. `run_proto` runs the round-1 prototype module
+(scripts/pallas_particle_proto.py: K11 tile_scatter, K12 tile_gather) as
+its command line does and reads the launch counts; `check_kernels` holds
+K11 and K12 against their plain versions on make_scene's pool at the
+grid's size (at >= 2^24 cells over its first PROBE_RUN particles).
+
 `run_scene_path` drives the same scene through the scene CLI
 (cli.main) from mesh files and a scene file that it writes, as a user
 would: chip_smoke.py runs it at 256^3, where the scatters fold their sums
@@ -59,6 +67,7 @@ from .ops import pallas_mg as pm
 from .ops import pallas_particles as pp
 from .scripts import gather_perf_probe as probe
 from .scripts import gather_smem_check, pallas_hw_check, time_ms
+from .scripts import pallas_particle_proto as proto
 from .solvers import multigrid as mg
 
 # (wrapper, source, the TPU kernel it replaces)
@@ -93,25 +102,42 @@ KERNELS = (
      "scripts/gather_perf_probe.py:48"),
     (probe.gather_revisit, "flipviscosity3d_torch/csrc/revisit.cu",
      "scripts/gather_perf_probe.py:83"),
+    (proto.tile_scatter, "flipviscosity3d_torch/csrc/tile_proto.cu",
+     "scripts/pallas_particle_proto.py:185"),
+    (proto.tile_gather, "flipviscosity3d_torch/csrc/tile_proto.cu",
+     "scripts/pallas_particle_proto.py:251"),
 )
 # the kernels of the hardware-check path (run_hw_check)
 HW_CHECK_KERNELS = ("gather_rows", "detile", "scatter_revisit",
                     "gather_revisit")
+# the kernels of the prototype's path (run_proto)
+PROTO_KERNELS = ("tile_scatter", "tile_gather")
+# every kernel but the V-cycle's: none launches on a "table" or "stream"
+# engine path
+_PARTICLE_KERNELS = tuple(fn.__name__ for fn, _, _ in KERNELS
+                          if fn not in (pm.mg_down, pm.mg_up))
 BENCH_PARTICLES = 4_111_806   # the JAX bench scene's pool at 128^3
 DT = 0.01
 STALE_LIFT = 0.43
 # The visit-plan variants of the second main path (config.py).
 STALE_PATH = dict(pallas_pass_a="stale", pallas_pass_b="plan",
                   pallas_pushback="kernel")
-# The main paths chip_smoke.py drives: (name, frame dt, lift of the pool in
-# y, config overrides). "bench" is bench.py's run under the JAX package's
-# default engine; "stale" lets the pool fall with frames long enough for
+# The main paths chip_smoke.py drives on the "pallas" engine (bench_scene's
+# default): (name, frame dt, lift of the pool in y, config overrides).
+# "bench" is bench.py's run under BENCH_DEFAULT's engine, "pallas", with its
+# default variants; "stale" lets the pool fall with frames long enough for
 # several substeps, so that stale substeps occur; "bench_sort" is the bench
 # run with pass B "sort" (a re-sort by midpoint key instead of the plan).
 MAIN_PATHS = (
     ("bench", DT, 0.0, {}),
     ("stale", 0.04, STALE_LIFT, STALE_PATH),
     ("bench_sort", DT, 0.0, {"pallas_pass_b": "sort"}),
+)
+# The bench run on the JAX package's two other engines; "table" is its
+# default.
+ENGINE_PATHS = (
+    ("table", DT, 0.0, {"particle_engine": "table"}),
+    ("stream", DT, 0.0, {"particle_engine": "stream"}),
 )
 
 # One NVIDIA H100 SXM, peak rates from its datasheet: HBM bytes/s and the
@@ -140,12 +166,15 @@ def _scatter_names(cfg: SimConfig):
 
 
 def path_kernels(cfg: SimConfig) -> list:
-    """The kernels a substep under `cfg` launches on the card."""
-    names = [_scatter_names(cfg)[0], "gather_mac"]
+    """The kernels a substep under `cfg` launches on the card: the V-cycle's
+    under a multigrid preconditioner, and under the "pallas" engine its
+    scatter and gather (and gather_rows8 under the kernel pushback)."""
+    pallas = cfg.particle_engine == "pallas"
+    names = [_scatter_names(cfg)[0], "gather_mac"] if pallas else []
     if "multigrid" in (cfg.pressure_preconditioner,
                        cfg.viscosity_preconditioner):
         names += ["mg_down", "mg_up"]
-    if cfg.pallas_pushback == "kernel":
+    if pallas and cfg.pallas_pushback == "kernel":
         names.append("gather_rows8")
     return names
 
@@ -158,11 +187,14 @@ def pool_mesh(res: int, lift: float = 0.0):
 
 
 def bench_scene(device, res: int, lift: float = 0.0,
+                particle_engine: str = "pallas",
                 **overrides) -> FluidSimulation:
     """bench.py's scene (bench.py:35-100) at res^3, the pool's box moved up
-    by `lift`, with config `overrides`."""
+    by `lift`, on `particle_engine` (bench.py's, "pallas", unless named),
+    with config `overrides`."""
     sim = FluidSimulation(device)
-    sim.initialize(res, res, res, 1.0 / res, bucket_capacity=16, **overrides)
+    sim.initialize(res, res, res, 1.0 / res, bucket_capacity=16,
+                   particle_engine=particle_engine, **overrides)
     sim.add_liquid(pool_mesh(res, lift))
     sim.set_viscosity(5.0)
     sim.set_gravity(0.0, -9.81, 0.0)
@@ -281,10 +313,14 @@ def _main_path_failures(sim, diags, result, dev) -> list:
         launches = result["launches"]
         failures += [f"kernel {k} was never launched"
                      for k in result["path_kernels"] if launches[k] == 0]
-        other = _scatter_names(sim.cfg)[1]
-        if launches[other]:
-            failures.append(f"kernel {other} was launched {launches[other]} "
-                            "times on a path of the other sums layout")
+        if sim.cfg.particle_engine == "pallas":
+            others = [_scatter_names(sim.cfg)[1]]
+            why = "on a path of the other sums layout"
+        else:
+            others = _PARTICLE_KERNELS
+            why = f"on a {sim.cfg.particle_engine!r} engine path"
+        failures += [f"kernel {k} was launched {launches[k]} times {why}"
+                     for k in others if launches[k]]
     return failures
 
 
@@ -441,7 +477,8 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     each; K5 and K6 through plans of cfg's budgets over the two
     stale_orders of the sorted particles, timed on "falling"; K1 and K5 in
     both layouts of their sums, whichever the grid's size would choose
-    (_scatter_checks). Returns
+    (_scatter_checks); K7-K10 (_column_records); K11 and K12 on the
+    prototype's own input (_proto_records). Returns
     one record per kernel with its checks, the kernel's, the plain version's
     and the library call's times, and its bound."""
     dev = state.pos.device
@@ -636,6 +673,7 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
 
     records.update(_column_records(stream.key, partial, (gu, gv, gw), shape,
                                    gen))
+    records.update(_proto_records(cfg, dev, gen))
 
     out = []
     for fn, source, replaces in KERNELS:
@@ -803,6 +841,99 @@ def _column_records(key_s, partial, grids, shape, gen) -> dict:
     return records
 
 
+def _proto_records(cfg: SimConfig, dev, gen) -> dict:
+    """The records of K11 and K12 for check_kernels: (checks, times, bound),
+    on the round-1 prototype's input at the grid's size: make_scene(res)
+    (the bench pool, 8 per cell; at >= 2^24 cells its first PROBE_RUN
+    particles), sorted by sort_particles, cap 16 (the prototype's), F = 128
+    random columns. K11 bit-equal between two calls, its slot table
+    torch.equal to tile_scatter_ref and its sums within rtol 1e-5 / atol
+    1e-6 of their largest magnitude (the plain index_add_ adds with atomics
+    in another order); no one PyTorch call computes its rows. K12
+    torch.equal to tile_gather_ref, with index_select of the flat columns
+    by the particles' keys as the library call."""
+    res = cfg.isize
+    pos, vel, dx, shape = proto.make_scene(res)
+    if pp.large_grid(shape):
+        pos, vel = pos[:PROBE_RUN], vel[:PROBE_RUN]
+    n = pos.shape[0]
+    cap, f = 16, probe.F
+    payload, starts, spans = proto.sort_particles(
+        torch.from_numpy(pos).to(dev), torch.from_numpy(vel).to(dev), dx,
+        shape)
+    del pos, vel
+    n_blocks = proto.n_blocks_of(shape)
+    nt = proto.tile_counts(shape)
+    covers = f"make_scene({res}): {n} particles"
+    records = {}
+
+    def k11():
+        return proto.tile_scatter(starts, payload, nt, dx, cap)
+
+    def k11_plain():
+        return proto.tile_scatter_ref(starts, payload, nt, dx, cap)
+
+    got = k11()
+    checks = [_exact(f"two calls bit-equal, {covers}", got, k11())]
+    want = k11_plain()
+    checks += [
+        _exact("slot table exact", got[..., proto.N_SUM:],
+               want[..., proto.N_SUM:]),
+        compare("sums", got[..., :proto.N_SUM], want[..., :proto.N_SUM],
+                1e-5, 1e-6 * _max_abs(want[..., :proto.N_SUM]))]
+    out_bytes = _nbytes(got)
+    del got, want
+    records["tile_scatter"] = (
+        checks, _times(k11, k11_plain),
+        bound(_nbytes(payload, starts) + out_bytes,
+              _P2G_FLOPS_PER_FACE * 54 * n))
+
+    n_chunks = spans.shape[0]
+    lanes = payload[:, :n_chunks * proto.C]
+    cols = torch.randn((n_blocks, proto.W, f), generator=gen, device=dev)
+    flat = cols.reshape(-1, f)
+    idx = payload[6, :n].to(torch.int64)
+    got = proto.tile_gather(spans, lanes, cols)
+    checks = [_exact(f"exact, {covers}", got,
+                     proto.tile_gather_ref(spans, lanes, cols)),
+              {"check": "pad rows zero", "ok": not bool(got[n:].any())},
+              _exact("the library call on the particles' rows", got[:n],
+                     torch.index_select(flat, 0, idx))]
+    out_bytes = _nbytes(got)
+    del got
+    distinct = int(torch.unique(idx).numel())
+    records["tile_gather"] = (
+        checks,
+        _times(lambda: proto.tile_gather(spans, lanes, cols),
+               lambda: proto.tile_gather_ref(spans, lanes, cols),
+               lambda: torch.index_select(flat, 0, idx)),
+        bound(4 * n_chunks * proto.C + distinct * f * 4 + out_bytes, 0))
+    return records
+
+
+def run_proto(device, res: int = 128, log=print) -> dict:
+    """The prototype's path: scripts/pallas_particle_proto.run as its
+    command line runs it (both checks at 16^3, then the sort, K11, K12 and
+    the two baselines timed at res^3). The launch counts are set to 0 just
+    before and read just after. Fails if a check failed or, on the card,
+    if K11 or K12 never launched."""
+    dev = torch.device(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = proto.run(dev, res, log=lambda line: None)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    log(json.dumps(result))
+    failures = [] if result["ok"] else [
+        f"a check of the prototype failed: {result['checks']}"]
+    if dev.type == "cuda":
+        failures += [f"kernel {k} was never launched"
+                     for k in PROTO_KERNELS if launches[k] == 0]
+    return {"result": result, "launches": launches, "wall_s": wall,
+            "path_kernels": list(PROTO_KERNELS), "failures": failures}
+
+
 def unfused_gather_mac(px, py, pz, keys, grids_u, grids_v, grids_w, dx,
                        grid_shape, dtype=torch.float32, split: bool = False):
     """gather_mac's samples by the unfused route, its oracle in the JAX
@@ -963,20 +1094,26 @@ def write_scene(workdir, name: str, boundary, liquid, **spec) -> str:
 
 
 def run_scene_path(device, workdir, name: str, res: int, frames: int,
-                   dt: float = DT, lift: float = 0.0, **overrides) -> dict:
+                   dt: float = DT, lift: float = 0.0,
+                   particle_engine: str | None = "pallas",
+                   **overrides) -> dict:
     """The bench scene (lifted by `lift`, config `overrides`) through the
     scene CLI: the pool and a container one cell inside the domain (so
     the solid boundary stays the domain's own) are written as PLY files
     with a scene file, and cli.main runs one warm frame and `frames` timed
-    frames of `dt` from them. The launch counts are set to 0 just before
-    cli.main and read just after. Returns run_main_path's dict plus
-    `run` (the SceneRun)."""
+    frames of `dt` from them. The scene file's config names
+    `particle_engine`, or no engine if it is None (the CLI then runs the
+    default). The launch counts are set to 0 just before cli.main and read
+    just after. Returns run_main_path's dict plus `run` (the SceneRun) and
+    `engine` (the engine the run's config says)."""
     dev = torch.device(device)
+    config = {"bucket_capacity": 16, **overrides}
+    if particle_engine is not None:
+        config["particle_engine"] = particle_engine
     scene = write_scene(
         workdir, name, box_mesh((1.0 / res,) * 3, (1.0 - 1.0 / res,) * 3),
         pool_mesh(res, lift), resolution=res, viscosity=5.0, dt=dt,
-        frames=frames + 1, export="none",
-        config={"bucket_capacity": 16, **overrides})
+        frames=frames + 1, export="none", config=config)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -985,6 +1122,7 @@ def run_scene_path(device, workdir, name: str, res: int, frames: int,
                           sum(ln["wall_s"] for ln in lines[1:]),
                           launch_counts(), dev, setup_s)
     result["run"] = run
+    result["engine"] = run.sim.cfg.particle_engine
     return result
 
 
@@ -995,8 +1133,9 @@ _CLI_INT_FIELDS = ("substeps", "pressure_iters", "viscosity_iters",
 def run_cli64(device, workdir, resolution=None) -> dict:
     """The CLI at its default resolution (64; `resolution` overrides it for
     the CPU tests) on a sphere drop in an inverted cube, both from
-    io/primitives: 4 frames with --export both --checkpoint-every 2, then a
-    second run of 2 frames resumed from ckpt_0002.npz. Checks that frame
+    io/primitives, on the "pallas" engine: 4 frames with --export both
+    --checkpoint-every 2, then a second run of 2 frames resumed from
+    ckpt_0002.npz. Checks that frame
     2's PLY and OBJ exports read back to the checkpoint's positions (PLY
     exactly, OBJ to 1e-6), that the resumed run's lines repeat the first
     run's frames 2 and 3 in every integer field, and that the two final
@@ -1004,7 +1143,8 @@ def run_cli64(device, workdir, resolution=None) -> dict:
     dev = torch.device(device)
     scene = write_scene(workdir, "cli64",
                         primitives.cube((0.5, 0.5, 0.5), 0.9),
-                        primitives.sphere((0.5, 0.6, 0.5), 0.2))
+                        primitives.sphere((0.5, 0.6, 0.5), 0.2),
+                        config={"particle_engine": "pallas"})
     base = ["--scene", scene, "--device", dev.type, "--export", "both"]
     if resolution is not None:
         base += ["--resolution", str(resolution)]

@@ -66,6 +66,28 @@ def test_both_clis_bake_the_same_two_frames(scene, tmp_path, monkeypatch):
     pressure_iters, viscosity_iters, liquid_cells and bucket_overflow and to
     1e-4 relative in max_velocity; the exported last frame (the particles
     after the first frame) agrees to 1e-5."""
+    run = _bake_both(scene, tmp_path, monkeypatch)
+    assert run.sim.cfg.particle_engine == "pallas"
+
+
+def test_a_scene_without_an_engine_bakes_the_same_frames_in_both(
+        scene, tmp_path, monkeypatch):
+    """The scene file's config names no particle_engine: both CLIs run
+    their default, the JAX package's "table" engine, and bake the same two
+    frames (as test_both_clis_bake_the_same_two_frames holds them)."""
+    with open(scene) as f:
+        spec = json.load(f)
+    del spec["config"]["particle_engine"]
+    with open(scene, "w") as f:
+        json.dump(spec, f)
+    run = _bake_both(scene, tmp_path, monkeypatch)
+    assert run.sim.cfg.particle_engine == "table"
+
+
+def _bake_both(scene, tmp_path, monkeypatch):
+    """Both CLIs bake `scene`'s two frames from one state saved by the JAX
+    package; their lines and exports are held equal -> the port's
+    SceneRun."""
     sim = FluidSimulation("cpu")
     sim.initialize(16, 16, 16, 1.0 / 16, bucket_capacity=16)
     sim.add_boundary(primitives.cube(*CONTAINER), inverted=True)
@@ -112,6 +134,7 @@ def test_both_clis_bake_the_same_two_frames(scene, tmp_path, monkeypatch):
     np.testing.assert_array_equal(
         tm.load_ply(os.path.join(out_t, "0000.ply")).vertices, arrays["pos"])
     assert len(run.frames) == 2
+    return run
 
 
 def test_cli_takes_a_scene_with_the_gather_dtype(scene, tmp_path):

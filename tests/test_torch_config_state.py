@@ -35,9 +35,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # JAX fields with no counterpart in the port: the knobs that only choose the
 # number of MXU passes or a TPU backend (config.py).
 TPU_ONLY = {"pallas_split_terms", "mg_backend"}
-# The one shared field whose default differs: the JAX package defaults to
-# its table engine, the port to the only engine it has.
-OWN_DEFAULT = {"particle_engine"}
+# Shared fields whose default differs between the packages: none.
+OWN_DEFAULT = set()
 SEED_BOX = ((0.2, 0.2, 0.2), (0.8, 0.55, 0.8))
 OBSTACLE = ((0.45, 0.1, 0.4), (0.6, 0.3, 0.55))
 
@@ -49,7 +48,7 @@ def test_config_shared_fields_match_jax_defaults():
     jc, pc = JaxConfig(), SimConfig()
     for name in sorted(port_fields - OWN_DEFAULT):
         assert getattr(pc, name) == getattr(jc, name), name
-    assert (pc.particle_engine, jc.particle_engine) == ("pallas", "table")
+    assert (pc.particle_engine, jc.particle_engine) == ("table", "table")
     assert pc.pallas_split_gather is None
     for prop in ("grid_shape", "n_cells", "particle_radius", "u_shape",
                  "v_shape", "w_shape", "node_shape"):
@@ -77,16 +76,37 @@ def test_config_variant_values_match_jax(field):
         assert getattr(JaxConfig(**{field: value}), field) == value
 
 
-@pytest.mark.parametrize("engine", ["table", "stream"])
-def test_config_names_the_engine_it_does_not_have(engine):
-    """A scene file's config block serves both CLIs: the port takes
-    "pallas" and raises a plain error that names any other JAX engine."""
-    assert SimConfig(particle_engine="pallas").particle_engine == "pallas"
+@pytest.mark.parametrize("engine", ["table", "stream", "pallas"])
+def test_config_takes_every_jax_engine_and_runs_it(engine):
+    """A scene file's config block serves both CLIs: the port takes each of
+    the JAX package's engines, and a FluidSimulation initialized with it
+    advances a frame on it (16^3, CPU): the pool's cells fill, both solves
+    iterate, and at a capacity of 2 the table and pallas engines count the
+    particles they leave out, the stream engine (no capacity) none; under
+    on_bucket_overflow="error" the next frame raises where it overflows.
+    Any other name raises."""
+    assert SimConfig(particle_engine=engine).particle_engine == engine
     assert JaxConfig(particle_engine=engine).particle_engine == engine
-    with pytest.raises(ValueError, match=f"'{engine}' is not ported"):
-        SimConfig(particle_engine=engine)
     with pytest.raises(ValueError, match="must be one of"):
         SimConfig(particle_engine="nonsense")
+    torch.set_num_threads(1)
+    sim = FluidSimulation("cpu")
+    sim.initialize(16, 16, 16, 1.0 / 16, bucket_capacity=2,
+                   particle_engine=engine)
+    sim.add_liquid(box_mesh(*SEED_BOX))
+    sim.set_viscosity(2.0)
+    assert sim.cfg.particle_engine == engine
+    diag = sim.advance(0.01)
+    assert diag.substeps == 1 and diag.liquid_cells > 0
+    assert diag.pressure_iterations > 0 and diag.viscosity_iterations > 0
+    assert (diag.bucket_overflow > 0) == (engine != "stream")
+    assert np.isfinite(sim.particle_positions).all()
+    sim.cfg = dataclasses.replace(sim.cfg, on_bucket_overflow="error")
+    if engine == "stream":
+        assert sim.advance(0.01).bucket_overflow == 0
+    else:
+        with pytest.raises(RuntimeError, match="bucket overflow"):
+            sim.advance(0.01)
 
 
 @pytest.mark.parametrize("value", [None, True, False])
@@ -119,6 +139,11 @@ def test_package_imports_without_jax():
         "import flipviscosity3d_torch.utils.checkpoint\n"
         "import flipviscosity3d_torch.utils.debug\n"
         "import flipviscosity3d_torch.utils.vmath\n"
+        "import flipviscosity3d_torch.ops.buckets\n"
+        "import flipviscosity3d_torch.ops.particle_grid\n"
+        "import flipviscosity3d_torch.ops.stream\n"
+        "import flipviscosity3d_torch.ops.stream_transfers\n"
+        "import flipviscosity3d_torch.scripts.pallas_particle_proto\n"
         "assert not any(m.startswith('flipviscosity3d_tpu') "
         "for m in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -14,6 +14,7 @@ from flipviscosity3d_torch.ops import pallas_mg as pm
 from flipviscosity3d_torch.ops import pallas_particles as pp
 from flipviscosity3d_torch.scripts import gather_perf_probe as probe
 from flipviscosity3d_torch.scripts import pallas_hw_check
+from flipviscosity3d_torch.scripts import pallas_particle_proto as proto
 
 
 @pytest.fixture
@@ -31,7 +32,8 @@ def test_kernels_match_plain_versions(cuda):
         "scatter_p2g_table", "gather_mac", "mg_down", "mg_up",
         "scatter_p2g_table_stale", "gather_rows8",
         "scatter_p2g_table_folded", "scatter_p2g_table_stale_folded",
-        "gather_rows", "detile", "scatter_revisit", "gather_revisit"]
+        "gather_rows", "detile", "scatter_revisit", "gather_revisit",
+        "tile_scatter", "tile_gather"]
     for r in records:
         assert r["ok"], r
         assert r["bound_by"] in ("bytes", "operations")
@@ -65,6 +67,55 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
     # and K1 once, whose sums pallas_hw_check holds against its oracle
     assert {k for k, c in result["launches"].items() if c > 0} == {
         "scatter_p2g_table", *smoke.HW_CHECK_KERNELS}
+
+
+@pytest.mark.gpu
+def test_table_stream_and_proto_paths_and_kernels(cuda):
+    """The bench run at 32^3 on the table and stream engines launches the
+    V-cycle's kernels K3 and K4 and no particle kernel; the prototype's path
+    at 32^3 launches K11 and K12 and its checks pass; K11 and K12 match
+    their plain versions at the prototype's 128^3 shapes
+    (_check_proto_kernels_at_128)."""
+    for name, dt, lift, overrides in smoke.ENGINE_PATHS:
+        result = smoke.run_main_path(cuda, 32, 1, dt=dt, lift=lift,
+                                     log=lambda line: None, **overrides)
+        assert result["failures"] == [], name
+        assert result["sim"].cfg.particle_engine == name
+        assert {k for k, c in result["launches"].items() if c > 0} == {
+            "mg_down", "mg_up"}, name
+    result = smoke.run_proto(cuda, 32, log=lambda line: None)
+    assert result["failures"] == [] and result["result"]["ok"]
+    assert {k for k, c in result["launches"].items() if c > 0} == set(
+        smoke.PROTO_KERNELS)
+    _check_proto_kernels_at_128(cuda)
+
+
+def _check_proto_kernels_at_128(cuda):
+    """K11 and K12 at the prototype's 128^3 shapes (make_scene(128):
+    4,456,448 particles, cap 16, F = 128): K11 bit-equal between two calls,
+    its slot table equal to the plain version's and its sums within rtol
+    1e-5 / atol 1e-6 of their largest magnitude (the plain index_add_ adds
+    with atomics); K12 torch.equal, its pad rows zero."""
+    pos, vel, dx, shape = proto.make_scene(128)
+    payload, starts, spans = proto.sort_particles(
+        torch.from_numpy(pos).to(cuda), torch.from_numpy(vel).to(cuda), dx,
+        shape)
+    nt = proto.tile_counts(shape)
+    got = proto.tile_scatter(starts, payload, nt, dx, 16)
+    assert torch.equal(got, proto.tile_scatter(starts, payload, nt, dx, 16))
+    want = proto.tile_scatter_ref(starts, payload, nt, dx, 16)
+    assert torch.equal(got[..., 108:], want[..., 108:])
+    torch.testing.assert_close(got[..., :108], want[..., :108], rtol=1e-5,
+                               atol=1e-6 * float(want[..., :108].abs().max()))
+    del got, want
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    cols = torch.randn((proto.n_blocks_of(shape), proto.W, 128),
+                       generator=gen, device=cuda)
+    lanes = payload[:, :spans.shape[0] * proto.C]
+    rows = proto.tile_gather(spans, lanes, cols)
+    assert torch.equal(rows, proto.tile_gather_ref(spans, lanes, cols))
+    assert not rows[pos.shape[0]:].any()
 
 
 @pytest.mark.gpu
@@ -194,3 +245,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                                      device=cuda), 1)
     with pytest.raises(ValueError):
         probe.gather_revisit(key, torch.zeros((1, pp.W, 128), device=cuda))
+    starts = torch.zeros(2, dtype=torch.int32, device=cuda)
+    payload = torch.zeros((8, 1024), device=cuda)
+    nt = (1, 1, 1)
+    with pytest.raises(ValueError):
+        proto.tile_scatter(starts.long(), payload, nt, 1 / 8, 4)
+    with pytest.raises(ValueError):
+        proto.tile_scatter(starts, payload.double(), nt, 1 / 8, 4)
+    with pytest.raises(ValueError):
+        proto.tile_scatter(starts, payload, (2, 1, 1), 1 / 8, 4)  # 1 tile
+    with pytest.raises(ValueError):
+        proto.tile_scatter(starts, payload, nt, 1 / 8, 33)   # past 32
+    spans = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    cols = torch.zeros((1, pp.W, 128), device=cuda)
+    with pytest.raises(ValueError):
+        proto.tile_gather(spans.long(), payload, cols)
+    with pytest.raises(ValueError):
+        proto.tile_gather(spans, payload[:, :512], cols)     # 2 chunks
+    with pytest.raises(ValueError):
+        proto.tile_gather(spans, payload, cols.double())
+    with pytest.raises(ValueError):
+        proto.tile_gather(spans, payload.t().contiguous().t(), cols)

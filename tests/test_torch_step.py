@@ -38,7 +38,8 @@ DT = float(np.float32(0.01))
 def scene():
     torch.set_num_threads(1)
     sim = FluidSimulation("cpu")
-    sim.initialize(16, 16, 16, 1.0 / 16, bucket_capacity=16)
+    sim.initialize(16, 16, 16, 1.0 / 16, bucket_capacity=16,
+                   particle_engine="pallas")
     sim.add_liquid(box_mesh((0.2, 0.2, 0.2), (0.8, 0.55, 0.8)))
     sim.set_viscosity(2.0)
     sim.set_gravity(0.0, -9.81, 0.0)
@@ -62,10 +63,12 @@ def _moving(arrays):
 
 
 def _port_cfg(cfg, jcfg):
-    """The port's config with the JAX config's particle-engine variants."""
+    """The port's config with the JAX config's particle engine, its
+    variants and capacities."""
     names = [f.name for f in dataclasses.fields(cfg)
-             if f.name.startswith("pallas_") or f.name == "sdf_capacity"
-             or f.name == "cfl_number"]
+             if f.name.startswith("pallas_") or f.name in (
+                 "particle_engine", "bucket_capacity", "sdf_capacity",
+                 "cfl_number")]
     return dataclasses.replace(cfg, **{k: getattr(jcfg, k) for k in names})
 
 
@@ -241,7 +244,7 @@ def test_main_path_runs_on_cpu():
         "scatter_p2g_table_stale": 0, "gather_rows8": 0,
         "scatter_p2g_table_folded": 0, "scatter_p2g_table_stale_folded": 0,
         "gather_rows": 0, "detile": 0, "scatter_revisit": 0,
-        "gather_revisit": 0}
+        "gather_revisit": 0, "tile_scatter": 0, "tile_gather": 0}
     assert result["path_kernels"] == [
         "scatter_p2g_table", "gather_mac", "mg_down", "mg_up"]
     assert all(f["viscosity_iterations"] > 0 for f in result["frames"])
