@@ -11,6 +11,9 @@
    ptxas' register / spill report.
 3. Holds each of the fourteen kernels against its plain PyTorch version
    on the card, at the bench scene's shapes (128^3 grid, ~4.1M particles;
+   K3 mg_down and K4 mg_up torch.equal at every level of the pressure and
+   the viscosity hierarchy, with bf16 and f32 operators, one line per level
+   with its times, back to back and with L2 flushed, and its bound;
    K5 and K6 on a fully covered falling order and on a partly covered
    random one; K1 and K5 in both layouts of their sums, the K-folded one
    also against the unfolded kernels; K7 gather_rows at 108 and 54 columns
@@ -38,7 +41,8 @@
      midpoint key instead of the midpoint plan);
    printing each frame's diagnostics (substeps, stale substeps, overflow,
    iterations, residuals and tolerances), substeps/s, peak memory and the
-   launch counts. A path fails if one of its kernels was never launched or
+   launch counts, in all and per substep (over the warm frame's substeps
+   too). A path fails if one of its kernels was never launched or
    a residual missed its tolerance. Then the bench run on the JAX
    package's two other engines, one warm frame and 5 timed each:
    - "table": particle_engine "table" (the JAX default), whose substeps
@@ -139,7 +143,19 @@ def main() -> int:
     sim = smoke.bench_scene("cuda", RES)
     print(f"scene: {RES}^3, {sim.state.pos.shape[0]} particles, set up in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    records = smoke.check_kernels(sim.state, sim.cfg)
+
+    def print_records(records, at):
+        """One line per kernel record and one per V-cycle level, each with
+        the card."""
+        for r in records:
+            levels = r.pop("levels", [])
+            print(json.dumps({"at": at, **r, "card": card}), flush=True)
+            for line in levels:
+                print(json.dumps({"at": at, "vcycle_level": line,
+                                  "card": card}), flush=True)
+
+    records = smoke.check_kernels(sim.state, sim.cfg, log=lambda _: None)
+    print_records(records, f"{RES}^3")
     failures += [f"kernel {r['name']} disagrees with its plain version"
                  for r in records if not r["ok"]]
 
@@ -187,6 +203,7 @@ def main() -> int:
             "peak_bytes": result["peak_bytes"],
             "setup_s": result["setup_s"],
             "launches": result["launches"],
+            "launches_per_substep": result["launches_per_substep"],
             "path_kernels": result["path_kernels"],
             "card": card,
         }), flush=True)
@@ -255,9 +272,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     large = smoke.check_kernels(state, cfg, ref_slabs=16, log=lambda _: None)
-    for r in large:
-        print(json.dumps({"at": f"{LARGE_RES}^3", **r, "card": card}),
-              flush=True)
+    print_records(large, f"{LARGE_RES}^3")
     print(json.dumps({"kernel_checks_at": f"{LARGE_RES}^3",
                       "peak_bytes": torch.cuda.max_memory_allocated()}))
     failures += [f"kernel {r['name']} disagrees with its plain version at "

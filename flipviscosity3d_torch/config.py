@@ -63,11 +63,25 @@ the velocity grids directly, so under "bf16" the step rounds the six grids
 that way before its two gathers (core/step.py); the grids kept in the
 state stay f32. Any other value raises.
 
-The knobs that only choose the number of MXU passes or a TPU backend are
-not fields here, since they change nothing the port computes:
-pallas_split_terms and mg_backend. The V(1,1) V-cycle runs through the
-mg_down / mg_up kernels on the card and through their plain PyTorch
-versions on the CPU.
+mg_backend ("auto", the default, "xla" or "pallas") chooses the V-cycle's
+executor in the JAX package; the port has one executor for the V(1,1)
+cycle, the mg_down / mg_up kernels on the card (their plain PyTorch
+versions on the CPU), and takes the field for what it changes in what is
+computed: the storage type of the level operators on the card
+(solvers/multigrid.py). "xla" stores them in f32 whatever
+mg_operator_dtype says, as the JAX package's XLA cycle keeps f32 levels;
+"auto" stores mg_operator_dtype where the fine level's j*k plane is at
+most 260*260 and f32 above, where the JAX package leaves its fused
+kernels for the XLA cycle; "pallas" stores mg_operator_dtype and, as in
+the JAX package, raises a ValueError for smoothing other than V(1,1),
+which the fused kernels do not implement.
+
+pallas_split_terms (an int >= 3, default 3) is taken and changes nothing:
+it is the number of bf16 terms of the JAX package's one-hot MXU products,
+which the JAX package runs as one exact f32 product off the TPU at >= 3;
+the port's scatters and gathers take exact f32 products. 1 and 2 raise a
+ValueError: the JAX package then rounds the products (to ~2^-15 at 2),
+and that rounding is not ported.
 """
 
 from __future__ import annotations
@@ -86,6 +100,7 @@ _ENUMS = {
     "pallas_pass_b": ("plan", "sort"),
     "pallas_pushback": ("gather", "kernel"),
     "pallas_gather_dtype": ("f32", "bf16"),
+    "mg_backend": ("auto", "xla", "pallas"),
 }
 
 
@@ -135,8 +150,8 @@ class SimConfig:
     on_bucket_overflow: str = "fallback"
 
     # Storage dtype of the V-cycle level operators on the card ("bf16" or
-    # "f32"); arithmetic is f32 either way. The CPU path always stores f32,
-    # as the JAX package's CPU path does.
+    # "f32") where mg_backend keeps it; arithmetic is f32 either way. The
+    # CPU path always stores f32, as the JAX package's CPU path does.
     mg_operator_dtype: str = "bf16"
 
     # Visit-plan variants of the particle engine (module docstring). A
@@ -156,6 +171,9 @@ class SimConfig:
     # "bf16": G2P and the midpoint sample read grid values rounded to bf16
     # (module docstring).
     pallas_gather_dtype: str = "f32"
+    # Taken for the JAX package's scene files; >= 3, no effect (module
+    # docstring).
+    pallas_split_terms: int = 3
 
     max_substeps: int = 64
 
@@ -168,6 +186,9 @@ class SimConfig:
     mg_post_smooth: int = 1
     mg_omega: float = 0.8
     mg_coarse_scale: float = 1.4
+    # "auto", "xla" or "pallas": the V-cycle operators' storage on the card
+    # (module docstring).
+    mg_backend: str = "auto"
 
     def __post_init__(self):
         if self.particle_engine not in PARTICLE_ENGINES:
@@ -183,6 +204,12 @@ class SimConfig:
                      "pallas_midpoint_budget"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1")
+        if self.pallas_split_terms < 3:
+            raise ValueError(
+                f"pallas_split_terms={self.pallas_split_terms}: fewer than 3 "
+                "bf16 terms round the JAX package's one-hot products (to "
+                "~2^-15 at 2); that rounding is not ported, the port's "
+                "products are exact f32 (what >= 3 gives)")
         if self.extrapolation_layers is None:
             object.__setattr__(
                 self, "extrapolation_layers",

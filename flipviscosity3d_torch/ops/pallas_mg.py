@@ -14,10 +14,13 @@ operator (diag and three links) is f32 or bf16, b, x and all arithmetic f32.
 
 `mg_down` / `mg_up` take the plain PyTorch version for CPU tensors and
 launch the CUDA kernel (csrc/mg_vcycle.cu) for CUDA tensors; there is no
-fallback between the two.
+fallback between the two. The kernels march blocks of 16 x 16 fine
+columns along i through chunks of planes; `plane_chunk` sizes the chunks.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -97,6 +100,9 @@ def coarse_shape(shape):
 def _check_level(diag, links, b):
     if b.ndim != 4:
         raise ValueError(f"level arrays must be (nb, I, J, K), got {b.shape}")
+    if b.numel() >= 1 << 31:
+        raise ValueError(f"a level of {b.numel()} cells: the kernels index "
+                         "it with 32-bit offsets")
     _build.require(diag, "diag", _OPERATOR_DTYPES, b.shape)
     for ax, lk in enumerate(links):
         _build.require(lk, f"links[{ax}]", diag.dtype, b.shape)
@@ -107,9 +113,49 @@ def _suffix(diag):
     return "bf16" if diag.dtype == torch.bfloat16 else "f32"
 
 
+# the kernels' column tile (csrc/mg_vcycle.cu: TJ x TK, one thread each)
+TILE_JK = 16
+# blocks of 256 threads an SM holds at once (csrc/mg_vcycle.cu:
+# BLOCKS_PER_SM, which caps a thread at 64 registers)
+_BLOCKS_PER_SM = 4
+# waves of blocks a level should give where its planes allow: enough that
+# the last, partly filled wave costs little
+_WAVES = 8
+# the fewest planes a block marches through: each block also reads the
+# plane below its chunk and the one above, which at 2 planes a chunk
+# doubles the loads (on an H100 80GB HBM3 at 700 W the 65^3 and 128^3
+# levels were faster at 4 than at 2, the 257^3 levels faster with eight
+# waves than with four; PERF.md section 6)
+_MIN_CHUNK = 4
+
+
+def plane_chunk(shape, sms: int) -> int:
+    """The planes each block of the kernels marches through at level shape
+    (nb, I, J, K) on a card of `sms` SMs: an even count (the kernels step
+    by i-pairs, and DOWN pools them inside a block), at least _MIN_CHUNK,
+    and as large as still gives _WAVES waves of blocks, the chunks of a
+    column as equal as they can be."""
+    nb, ni, nj, nk = shape
+    tiles = nb * -(-nj // TILE_JK) * -(-nk // TILE_JK)
+    chunks = -(-(_WAVES * _BLOCKS_PER_SM * sms) // tiles)
+    c = -(-ni // chunks)
+    return max(_MIN_CHUNK, c + (c & 1))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _chunk(b) -> int:
+    return plane_chunk(b.shape, _sm_count(b.device.index
+                                          if b.device.index is not None
+                                          else torch.cuda.current_device()))
+
+
 _P, _I, _F = _build.P, _build.I, _build.F
-_DOWN_ARGS = (_P,) * 5 + (_I,) * 4 + (_F,) + (_P,) * 2 + (_P,)
-_UP_ARGS = (_P,) * 7 + (_I,) * 4 + (_F, _F) + (_P,) + (_P,)
+_DOWN_ARGS = (_P,) * 5 + (_I,) * 5 + (_F,) + (_P,) * 2 + (_P,)
+_UP_ARGS = (_P,) * 7 + (_I,) * 5 + (_F, _F) + (_P,) + (_P,)
 
 
 def mg_down(diag, links, b, omega):
@@ -125,8 +171,8 @@ def mg_down(diag, links, b, omega):
     _build.launch(
         f"flip3d_mg_down_{_suffix(diag)}", _DOWN_ARGS,
         diag.data_ptr(), links[0].data_ptr(), links[1].data_ptr(),
-        links[2].data_ptr(), b.data_ptr(), nb, ni, nj, nk, float(omega),
-        x.data_ptr(), rc.data_ptr())
+        links[2].data_ptr(), b.data_ptr(), nb, ni, nj, nk, _chunk(b),
+        float(omega), x.data_ptr(), rc.data_ptr())
     mg_down.launches += 1
     return x, rc
 
@@ -144,7 +190,8 @@ def mg_up(diag, links, b, x, xc, omega, scale):
         f"flip3d_mg_up_{_suffix(diag)}", _UP_ARGS,
         diag.data_ptr(), links[0].data_ptr(), links[1].data_ptr(),
         links[2].data_ptr(), b.data_ptr(), x.data_ptr(), xc.data_ptr(),
-        nb, ni, nj, nk, float(omega), float(scale), out.data_ptr())
+        nb, ni, nj, nk, _chunk(b), float(omega), float(scale),
+        out.data_ptr())
     mg_up.launches += 1
     return out
 

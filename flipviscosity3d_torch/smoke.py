@@ -272,6 +272,8 @@ def _path_result(sim, diags, timed, wall, launches, dev, setup_s) -> dict:
     read just after the path. `failures` lists the checks that did not
     hold."""
     substeps = sum(d.substeps for d in timed)
+    # over every frame the counts cover, the warm one too
+    all_substeps = max(1, sum(d.substeps for d in diags))
     result = {
         "particles": int(sim.state.pos.shape[0]),
         "frames": [d.as_dict() for d in diags],
@@ -284,6 +286,8 @@ def _path_result(sim, diags, timed, wall, launches, dev, setup_s) -> dict:
         "peak_bytes": (torch.cuda.max_memory_allocated()
                        if dev.type == "cuda" else None),
         "launches": launches,
+        "launches_per_substep": {k: v / all_substeps
+                                 for k, v in launches.items() if v},
         "path_kernels": path_kernels(sim.cfg),
         "setup_s": setup_s,
     }
@@ -381,6 +385,22 @@ def _random_level(shape, gen, device):
     return diag, tuple(links), b
 
 
+def vcycle_level_shapes(shape, cfg: SimConfig) -> dict:
+    """The (nb, I, J, K) shapes of the levels above the coarsest, the ones
+    mg_down / mg_up run on, of both solves' hierarchies on a grid of
+    `shape`: "pressure" from (1, I, J, K), "viscosity" from (3, I+1, J+1,
+    K+1) (multigrid.build_hierarchy's rule)."""
+    out = {}
+    for label, fine in (("pressure", (1,) + tuple(shape)),
+                        ("viscosity", (3,) + tuple(s + 1 for s in shape))):
+        levels = [fine]
+        while (len(levels) < cfg.mg_max_levels
+               and min(levels[-1][1:]) > cfg.mg_coarse_size):
+            levels.append(pm.coarse_shape(levels[-1]))
+        out[label] = levels[:-1]
+    return out
+
+
 def _v_cycle_plain(hier, b, omega, scale):
     """The V(1,1) recursion of multigrid.v_cycle through mg_down_ref /
     mg_up_ref, on the same (bf16-stored) operators as the kernel cycle."""
@@ -472,10 +492,12 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     one at 128^3, more where their values would not fit the card beside the
     sums): K1 on the scene's sorted particles; K2 with two
     grids at the particles and one grid at midpoints (some outside the
-    domain); K3/K4 on a pressure-sized (1,I,J,K) and a viscosity-sized
-    (3,I+1,J+1,K+1) level with the bf16 operator, and a whole V-cycle on
-    each; K5 and K6 through plans of cfg's budgets over the two
-    stale_orders of the sorted particles, timed on "falling"; K1 and K5 in
+    domain); K3/K4 torch.equal at every level of the pressure (1,I,J,K) and
+    the viscosity (3,I+1,J+1,K+1) hierarchy with the bf16 and the f32
+    operator, each level timed cold and warm beside its bound (the mg_down
+    record's `levels`), and a whole V-cycle of each (_vcycle_records); K5
+    and K6 through plans of cfg's budgets over the two stale_orders of the
+    sorted particles, timed on "falling"; K1 and K5 in
     both layouts of their sums, whichever the grid's size would choose
     (_scatter_checks); K7-K10 (_column_records); K11 and K12 on the
     prototype's own input (_proto_records). Returns
@@ -560,45 +582,8 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
         bound(_nbytes(px, py, pz, stream.key, *gu, *gv, *gw) + 24 * n,
               3 * (9 + 2 * 18 * 5) * n))
 
-    # K3 / K4 on both solves' fine level shapes, bf16 operator
-    down_checks, up_checks = [], []
-    timed = {}
-    for label, lshape in (
-            ("pressure", (1,) + tuple(shape)),
-            ("viscosity", (3,) + tuple(s + 1 for s in shape))):
-        diag, links, b = _random_level(lshape, gen, dev)
-        d16 = diag.to(torch.bfloat16)
-        l16 = tuple(lk.to(torch.bfloat16) for lk in links)
-        xk, rck = pm.mg_down(d16, l16, b, cfg.mg_omega)
-        xr, rcr = pm.mg_down_ref(d16, l16, b, cfg.mg_omega)
-        down_checks += [compare(f"{label} {lshape} x", xk, xr, 2e-5, 2e-5),
-                        compare(f"{label} rc", rck, rcr, 2e-5, 2e-5)]
-        xc = torch.randn(rcr.shape, generator=gen, device=dev)
-        up_args = (d16, l16, b, xr, xc, cfg.mg_omega, cfg.mg_coarse_scale)
-        up_checks.append(compare(f"{label} {lshape} x_out",
-                                 pm.mg_up(*up_args), pm.mg_up_ref(*up_args),
-                                 2e-5, 2e-5))
-        hier = mg.build_hierarchy(diag, links, cfg)
-        vk = mg.v_cycle(hier, b, 1, 1, cfg.mg_omega, cfg.mg_coarse_scale)
-        vr = _v_cycle_plain(hier, b, cfg.mg_omega, cfg.mg_coarse_scale)
-        cyc = compare(f"{label} whole V-cycle ({len(hier.levels)} levels)",
-                      vk, vr, 2e-5, 2e-5)
-        down_checks.append(cyc)
-        up_checks.append(cyc)
-        if label == "viscosity":
-            cells = b.numel()
-            # DOWN: 3 for x, 14 for A x and r, 1 to pool; UP: 2 for the
-            # prolongation, 14 for the residual, 4 for the sweep
-            timed["mg_down"] = (
-                _times(lambda: pm.mg_down(d16, l16, b, cfg.mg_omega),
-                       lambda: pm.mg_down_ref(d16, l16, b, cfg.mg_omega)),
-                bound(_nbytes(d16, *l16, b, xr, rcr), 18 * cells))
-            timed["mg_up"] = (
-                _times(lambda: pm.mg_up(*up_args),
-                       lambda: pm.mg_up_ref(*up_args)),
-                bound(_nbytes(d16, *l16, b, xr, xc, xr), 20 * cells))
-    records["mg_down"] = (down_checks, *timed["mg_down"])
-    records["mg_up"] = (up_checks, *timed["mg_up"])
+    # K3 / K4 at every level of both solves' hierarchies
+    records.update(_vcycle_records(cfg, dev, gen))
 
     # K5 / K6 over two stale orders of the sorted particles: "falling", one
     # CFL substep of the stale path's fall (its regime: every particle
@@ -685,8 +670,156 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
             **times, **bnd,
             "ok": all(c["ok"] for c in checks), "checks": checks,
         }
+        levels = rec.pop("levels", [])
         log(json.dumps(rec))
+        for line in levels:
+            log(json.dumps({"vcycle_level": line}))
+        if levels:
+            rec["levels"] = levels
         out.append(rec)
+    return out
+
+
+# bytes written between two cold launches: more than the 50 MB L2 holds
+_FLUSH_BYTES = 256 << 20
+# the head start, in device clock cycles, a timed batch is queued behind,
+# so that the host's launch cost stays out of the device's time
+_HEAD_START_CYCLES = 2_000_000
+
+
+def device_ms(fn, flush=None, count: int = 10, repeats: int = 5) -> float:
+    """Device milliseconds of one fn() call, the median of `repeats`
+    batches. Each batch is queued behind torch.cuda._sleep, so the host has
+    enqueued it before the device reaches its first CUDA event, and is
+    timed by a pair of events: without `flush`, `count` back-to-back calls
+    (inputs warm in L2 where they fit); with `flush`, one call after
+    flush() has written past L2 (cold inputs), the flush outside the
+    events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(_HEAD_START_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        calls = 1 if flush is not None else count
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _equal(name, got, want) -> dict:
+    """torch.equal of two outputs, with their largest difference."""
+    rec = compare(name, got, want, 0.0, 0.0)
+    rec["ok"] = bool(torch.equal(got, want))
+    return rec
+
+
+def _vcycle_records(cfg: SimConfig, dev, gen) -> dict:
+    """The records of K3 mg_down and K4 mg_up for check_kernels. For each
+    solve (vcycle_level_shapes of cfg's grid) a random diagonally dominant
+    fine operator is coarsened by multigrid.build_hierarchy; at every level
+    above the coarsest, with the operator stored in bf16 (the hierarchy's
+    own, cfg.mg_operator_dtype) and in f32 and a random b and xc, each
+    kernel is held torch.equal to its plain version; a whole V-cycle is
+    held torch.equal to _v_cycle_plain. Each bf16 level is timed: the
+    kernel back to back (`ms`) and cold (`ms_cold`, L2 flushed before each
+    launch; the inputs of the levels under ~50 MB otherwise stay in L2 and
+    read faster than the bound allows), the plain version, and the bound
+    of its bytes. The records' own times and bound are the viscosity fine
+    level's (the series of the earlier records); `levels` holds one line
+    per level."""
+    on_card = torch.device(dev).type == "cuda"
+    flush_buf = torch.empty(_FLUSH_BYTES // 4 if on_card else 1, device=dev)
+    flush = flush_buf.zero_
+    omega, scale = cfg.mg_omega, cfg.mg_coarse_scale
+    checks = {"mg_down": [], "mg_up": []}
+    levels = []
+    timed = {}
+    for label, shapes in vcycle_level_shapes(cfg.grid_shape, cfg).items():
+        diag, links, b = _random_level(shapes[0], gen, dev)
+        hier = mg.build_hierarchy(diag, links, cfg)
+        del diag, links
+        assert [tuple(op[0].shape) for op in hier.ops] == shapes
+        cyc = _equal(f"{label} whole V-cycle ({len(hier.levels)} levels)",
+                     mg.v_cycle(hier, b, 1, 1, omega, scale),
+                     _v_cycle_plain(hier, b, omega, scale))
+        del b
+        checks["mg_down"].append(cyc)
+        checks["mg_up"].append(cyc)
+        for lvl, (ops, level) in enumerate(zip(hier.ops, hier.levels)):
+            shape = tuple(ops[0].shape)
+            bl = torch.randn(shape, generator=gen, device=dev)
+            xc = torch.randn(pm.coarse_shape(shape), generator=gen,
+                             device=dev)
+            line = {"system": label, "level": lvl, "shape": list(shape),
+                    "chunk": pm._chunk(bl) if on_card else None}
+            for own, (d, lk) in enumerate((ops, (
+                    level.diag.contiguous(),
+                    tuple(a.contiguous() for a in level.links)))):
+                tag = "bf16" if d.dtype == torch.bfloat16 else "f32"
+                xk, rck = pm.mg_down(d, lk, bl, omega)
+                xr, rcr = pm.mg_down_ref(d, lk, bl, omega)
+                checks["mg_down"] += [
+                    _equal(f"{label} {shape} {tag} x", xk, xr),
+                    _equal(f"{label} {shape} {tag} rc", rck, rcr)]
+                up = (d, lk, bl, xr, xc, omega, scale)
+                outk = pm.mg_up(*up)
+                checks["mg_up"].append(_equal(f"{label} {shape} {tag} out",
+                                              outk, pm.mg_up_ref(*up)))
+                line[f"equal_{tag}"] = all(
+                    c["ok"] for c in (checks["mg_down"][-2:]
+                                      + checks["mg_up"][-1:]))
+                if own == 0:   # the hierarchy's own storage is timed
+                    down = (d, lk, bl, omega)
+                    line["mg_down"] = _level_times(
+                        lambda: pm.mg_down(*down),
+                        lambda: pm.mg_down_ref(*down), flush, on_card,
+                        bound(_nbytes(d, *lk, bl, xk, rck),
+                              18 * bl.numel()))
+                    line["mg_up"] = _level_times(
+                        lambda: pm.mg_up(*up), lambda: pm.mg_up_ref(*up),
+                        flush, on_card,
+                        bound(_nbytes(d, *lk, bl, xr, xc, outk),
+                              20 * bl.numel()))
+                del xk, rck, xr, rcr, outk
+            levels.append(line)
+            if label == "viscosity" and lvl == 0:
+                for name in ("mg_down", "mg_up"):
+                    t = line[name]
+                    timed[name] = (
+                        {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                         "library_ms": None},
+                        {k: t[k] for k in ("bound_ms", "bound_by", "bytes",
+                                           "flops")})
+        del hier
+    del flush_buf
+    timed["mg_down"][0]["levels"] = levels
+    return {name: (checks[name], *timed[name])
+            for name in ("mg_down", "mg_up")}
+
+
+def _level_times(kern, plain, flush, on_card, bnd) -> dict:
+    """A level's times: the kernel back to back and cold (device_ms; on the
+    CPU, where the plain version runs, time_ms and no cold time), the plain
+    version, and the bound `bnd` with the ratio of the cold time to it."""
+    if on_card:
+        ms, cold = device_ms(kern), device_ms(kern, flush)
+    else:
+        ms, cold = time_ms(kern, "cpu", batch_ms=5.0), None
+    out = {"ms": ms, "ms_cold": cold,
+           "plain_ms": time_ms(plain, "cuda" if on_card else "cpu",
+                               batch_ms=5.0 if not on_card else 50.0),
+           **bnd}
+    out["cold_over_bound"] = (cold / bnd["bound_ms"] if cold is not None
+                              else None)
     return out
 
 

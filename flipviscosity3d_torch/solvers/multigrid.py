@@ -9,8 +9,9 @@ is computed in closed form by sum-pooling the fine diagonal and links.
 Every level here is (nb, I, J, K): the pressure system has nb = 1, the
 viscosity system stacks its three component blocks (nb = 3). The V(1,1)
 cycle runs each level above the coarsest as one mg_down and one mg_up
-(ops/pallas_mg.py); on the card the level operators are stored in
-cfg.mg_operator_dtype, on the CPU in f32. The coarsest level
+(ops/pallas_mg.py), under every mg_backend; on the card the level operators
+are stored in cfg.mg_operator_dtype or, where mg_backend says so, in f32
+(_storage_dtype), on the CPU in f32. The coarsest level
 (min dim <= mg_coarse_size) is solved with an explicit dense inverse.
 """
 
@@ -109,15 +110,41 @@ class MGHierarchy:
     ops: tuple | None
 
 
-def _storage_dtype(cfg, device):
-    if device.type == "cuda" and cfg.mg_operator_dtype == "bf16":
-        return torch.bfloat16
-    return torch.float32
+# The largest fine j*k plane at which the JAX package's "auto" backend runs
+# its fused V-cycle kernels (flipviscosity3d_tpu/solvers/multigrid.py,
+# _PALLAS_MAX_PLANE); above it, it keeps the XLA cycle's f32 levels.
+_FUSED_MAX_PLANE = 260 * 260
+
+
+def _check_backend(cfg) -> None:
+    """The JAX package's one refusal: mg_backend "pallas" forces its fused
+    kernels, which implement V(1,1) smoothing only."""
+    if cfg.mg_backend == "pallas" and (
+            cfg.mg_pre_smooth, cfg.mg_post_smooth) != (1, 1):
+        raise ValueError(
+            "mg_backend='pallas' implements V(1,1) smoothing only; got "
+            f"pre={cfg.mg_pre_smooth} post={cfg.mg_post_smooth} "
+            "(use mg_backend='xla' for other counts)")
+
+
+def _storage_dtype(cfg, device, fine_shape):
+    """The level operators' storage type: cfg.mg_operator_dtype on the card,
+    except f32 under mg_backend "xla" and under "auto" where the fine j*k
+    plane passes _FUSED_MAX_PLANE (the JAX package's f32 XLA levels); f32
+    on the CPU."""
+    if device.type != "cuda" or cfg.mg_operator_dtype == "f32":
+        return torch.float32
+    if cfg.mg_backend == "xla" or (
+            cfg.mg_backend == "auto"
+            and fine_shape[-2] * fine_shape[-1] > _FUSED_MAX_PLANE):
+        return torch.float32
+    return torch.bfloat16
 
 
 def build_hierarchy(diag, links, cfg) -> MGHierarchy:
     """Level hierarchy from the premasked fine operator ((I,J,K) or
     (nb,I,J,K)); coarsening stops once min dim <= mg_coarse_size."""
+    _check_backend(cfg)
     if diag.ndim == 3:
         diag = diag[None]
         links = tuple(lk[None] for lk in links)
@@ -132,7 +159,7 @@ def build_hierarchy(diag, links, cfg) -> MGHierarchy:
            if s[0] * s[1] * s[2] <= _DENSE_COARSE_MAX_CELLS else None)
     ops = None
     if (cfg.mg_pre_smooth, cfg.mg_post_smooth) == (1, 1):
-        dt = _storage_dtype(cfg, diag.device)
+        dt = _storage_dtype(cfg, diag.device, diag.shape)
         ops = tuple(
             (lv.diag.to(dt).contiguous(),
              tuple(lk.to(dt).contiguous() for lk in lv.links))

@@ -161,6 +161,22 @@ def test_cli_takes_a_scene_with_the_gather_dtype(scene, tmp_path):
             assert run.frames[0].pressure_iterations > 0
 
 
+def test_both_clis_take_a_scene_with_the_mg_backend_and_split_terms(
+        scene, tmp_path, monkeypatch):
+    """A scene file whose config block sets mg_backend "xla" and
+    pallas_split_terms 3 (JAX config fields the port refused before) bakes
+    the same two frames under both CLIs, held as
+    test_both_clis_bake_the_same_two_frames holds them."""
+    with open(scene) as f:
+        spec = json.load(f)
+    spec["config"].update(mg_backend="xla", pallas_split_terms=3)
+    with open(scene, "w") as f:
+        json.dump(spec, f)
+    run = _bake_both(scene, tmp_path, monkeypatch)
+    assert run.sim.cfg.mg_backend == "xla"
+    assert run.sim.cfg.pallas_split_terms == 3
+
+
 def test_scene_file_yields_to_explicit_flags(scene):
     """Scene keys fill in the flags left at their defaults; a flag given on
     the command line wins; config, liquid_meshes and invert_boundary stay in

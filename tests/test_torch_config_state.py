@@ -32,9 +32,9 @@ from flipviscosity3d_torch.ops import mesh_sdf as tmesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# JAX fields with no counterpart in the port: the knobs that only choose the
-# number of MXU passes or a TPU backend (config.py).
-TPU_ONLY = {"pallas_split_terms", "mg_backend"}
+# JAX fields with no counterpart in the port: none (pallas_split_terms and
+# mg_backend are taken, config.py).
+TPU_ONLY = set()
 # Shared fields whose default differs between the packages: none.
 OWN_DEFAULT = set()
 SEED_BOX = ((0.2, 0.2, 0.2), (0.8, 0.55, 0.8))
@@ -58,7 +58,7 @@ def test_config_shared_fields_match_jax_defaults():
 @pytest.mark.parametrize("field", [
     "on_bucket_overflow", "mg_operator_dtype", "viscosity_preconditioner",
     "pressure_preconditioner", "pallas_pass_a", "pallas_pass_b",
-    "pallas_pushback", "pallas_gather_dtype"])
+    "pallas_pushback", "pallas_gather_dtype", "mg_backend"])
 def test_config_rejects_unknown_enum_values(field):
     with pytest.raises(ValueError):
         SimConfig(**{field: "nonsense"})
@@ -113,6 +113,25 @@ def test_config_takes_every_jax_engine_and_runs_it(engine):
 def test_config_takes_pallas_split_gather(value):
     assert SimConfig(pallas_split_gather=value).pallas_split_gather is value
     assert JaxConfig(pallas_split_gather=value).pallas_split_gather is value
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas"])
+def test_config_takes_every_jax_mg_backend(backend):
+    assert SimConfig(mg_backend=backend).mg_backend == backend
+    assert JaxConfig(mg_backend=backend).mg_backend == backend
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3, 4])
+def test_config_takes_split_terms_from_three(terms):
+    """pallas_split_terms >= 3 is taken (no effect: exact f32 products, what
+    the JAX package computes at >= 3 off the TPU); 1 and 2 raise, naming
+    the JAX package's rounding that is not ported."""
+    assert JaxConfig(pallas_split_terms=terms).pallas_split_terms == terms
+    if terms >= 3:
+        assert SimConfig(pallas_split_terms=terms).pallas_split_terms == terms
+    else:
+        with pytest.raises(ValueError, match="rounding is not ported"):
+            SimConfig(pallas_split_terms=terms)
 
 
 def test_fluid_simulation_defaults_to_the_card():

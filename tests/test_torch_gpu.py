@@ -10,11 +10,28 @@ import pytest
 import torch
 
 from flipviscosity3d_torch import smoke
+from flipviscosity3d_torch.config import SimConfig
 from flipviscosity3d_torch.ops import pallas_mg as pm
 from flipviscosity3d_torch.ops import pallas_particles as pp
 from flipviscosity3d_torch.scripts import gather_perf_probe as probe
 from flipviscosity3d_torch.scripts import pallas_hw_check
 from flipviscosity3d_torch.scripts import pallas_particle_proto as proto
+from flipviscosity3d_torch.solvers import multigrid as mg
+
+# K3 / K4: every level above the coarsest of both hierarchies at 32^3, and
+# ragged shapes drawn from I in {1, 2, 3, 17}, J and K in {1, 7, 31, 33, 65},
+# nb in {1, 3}, which straddle the kernels' 16 x 16 column tiles and their
+# i-chunks
+LEVEL_SHAPES = [(1, 32, 32, 32), (1, 16, 16, 16), (3, 33, 33, 33),
+                (3, 17, 17, 17), (3, 9, 9, 9)]
+RAGGED_SHAPES = [(1, 1, 1, 1), (3, 2, 7, 31), (1, 3, 33, 65),
+                 (3, 17, 65, 7), (1, 17, 31, 33), (3, 1, 65, 65),
+                 (1, 2, 1, 33), (3, 3, 31, 1), (1, 17, 7, 7),
+                 (3, 17, 33, 31), (1, 3, 65, 1), (3, 2, 33, 33),
+                 (1, 1, 31, 65)]
+# the planes a block marches through: the wrapper's own choice (4 at these
+# sizes), 2, and all of I in one chunk
+CHUNKS = ["auto", 2, "all"]
 
 
 @pytest.fixture
@@ -266,3 +283,61 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         proto.tile_gather(spans, payload, cols.double())
     with pytest.raises(ValueError):
         proto.tile_gather(spans, payload.t().contiguous().t(), cols)
+
+
+def _level_inputs(shape, gen, dev):
+    """A random level: diag in [1, 2) with a tenth of it 0 (inv_diag's other
+    branch), links in [0, 0.25) on every cell (the kernels must leave out
+    the links past the edge as the plain version's zero x does), b, and a
+    coarse xc."""
+    diag = 1.0 + torch.rand(shape, generator=gen, device=dev)
+    diag[torch.rand(shape, generator=gen, device=dev) < 0.1] = 0.0
+    links = tuple(0.25 * torch.rand(shape, generator=gen, device=dev)
+                  for _ in range(3))
+    b = torch.randn(shape, generator=gen, device=dev)
+    xc = torch.randn(pm.coarse_shape(shape), generator=gen, device=dev)
+    return diag, links, b, xc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", CHUNKS, ids=str)
+@pytest.mark.parametrize("shape", LEVEL_SHAPES + RAGGED_SHAPES, ids=str)
+def test_vcycle_kernels_equal_their_plain_versions(cuda, shape, chunk,
+                                                   monkeypatch):
+    """K3 mg_down (x and rc) and K4 mg_up torch.equal to mg_down_ref /
+    mg_up_ref, with a bf16 and an f32 operator."""
+    if chunk != "auto":
+        planes = shape[1] + shape[1] % 2 if chunk == "all" else chunk
+        monkeypatch.setattr(pm, "plane_chunk", lambda s, sms: planes)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sum(shape))
+    diag, links, b, xc = _level_inputs(shape, gen, cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        d, lk = diag.to(dtype), tuple(a.to(dtype) for a in links)
+        x, rc = pm.mg_down(d, lk, b, 0.8)
+        xr, rcr = pm.mg_down_ref(d, lk, b, 0.8)
+        assert torch.equal(x, xr), dtype
+        assert torch.equal(rc, rcr), dtype
+        up = (d, lk, b, xr, xc, 0.8, 1.4)
+        assert torch.equal(pm.mg_up(*up), pm.mg_up_ref(*up)), dtype
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, backend, stored", [
+    ("bf16", "auto", torch.bfloat16), ("f32", "auto", torch.float32),
+    ("bf16", "xla", torch.float32)])
+def test_v_cycle_equals_the_plain_recursion(cuda, dtype, backend, stored):
+    """A whole V-cycle of each solve's hierarchy at 32^3 through the kernels
+    torch.equal to the recursion through their plain versions; the levels
+    stored as mg_operator_dtype says, in f32 under mg_backend "xla"."""
+    cfg = SimConfig(isize=32, jsize=32, ksize=32, dx=1.0 / 32,
+                    mg_operator_dtype=dtype, mg_backend=backend)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    for shapes in smoke.vcycle_level_shapes(cfg.grid_shape, cfg).values():
+        diag, links, b = smoke._random_level(shapes[0], gen, cuda)
+        hier = mg.build_hierarchy(diag, links, cfg)
+        assert [op[0].dtype for op in hier.ops] == [stored] * len(shapes)
+        got = mg.v_cycle(hier, b, 1, 1, cfg.mg_omega, cfg.mg_coarse_scale)
+        assert torch.equal(got, smoke._v_cycle_plain(
+            hier, b, cfg.mg_omega, cfg.mg_coarse_scale))

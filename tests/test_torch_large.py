@@ -12,7 +12,8 @@ mode, which on the CPU is one exact f32 dot per one-hot contraction:
 tolerances cover summation order only.
 
 Also here: the bench scene's pool at rest at 32^3, whose surface velocities
-grow frame by frame in both packages alike.
+grow frame by frame in both packages alike, and the table engine's drops on
+that pool, equal frame by frame in both packages.
 """
 
 import dataclasses
@@ -296,13 +297,17 @@ def test_scene_path_reports_the_large_scene_kernels(folds_at_16, tmp_path):
         "gather_rows8"]
 
 
-def _resting_pool_frames(res, frames):
+def _resting_pool_frames(res, frames, particle_engine="pallas",
+                         bucket_capacity=16):
     """The bench scene's pool at rest at res^3 through `frames` frames of
-    0.01 s in both packages, under the default engine variants -> (the
-    port's diagnostics per frame, the JAX package's)."""
-    sim = smoke.bench_scene("cpu", res)
+    0.01 s in both packages on `particle_engine` at `bucket_capacity`,
+    under the default engine variants -> (the port's diagnostics per frame,
+    the JAX package's)."""
+    sim = smoke.bench_scene("cpu", res, particle_engine=particle_engine)
+    sim.cfg = dataclasses.replace(sim.cfg, bucket_capacity=bucket_capacity)
     jcfg = JaxConfig(isize=res, jsize=res, ksize=res, dx=1.0 / res,
-                     bucket_capacity=16, particle_engine="pallas")
+                     bucket_capacity=bucket_capacity,
+                     particle_engine=particle_engine)
     cfg = _port_cfg(sim.cfg, jcfg)
     assert cfg == sim.cfg
     _, tds, _, jds = _advance_both(state_to_numpy(sim.state), cfg, jcfg,
@@ -330,3 +335,23 @@ def test_resting_pool_speeds_up_in_both_packages_alike():
                                    rtol=1e-4)
     speeds = [td.max_velocity for td in tds]
     assert speeds[0] == 0.0 and speeds[1] > 0.5 and speeds[4] > 1.0
+
+
+def test_table_drops_equal_frame_by_frame_in_both_packages():
+    """The "table" engine (the JAX default) on the bench scene's pool at
+    32^3, five frames, at a bucket capacity of 10: the pool settles and
+    crowds cells past the capacity, and the JAX package drops particles in
+    four of the five frames (0, 13, 138, 337, 624 when this test was
+    written). The port drops the same particles: bucket_overflow, substeps
+    and both solves' iteration counts equal frame by frame, max|u| to
+    1e-4."""
+    torch.set_num_threads(1)
+    tds, jds = _resting_pool_frames(32, 5, "table", 10)
+    for td, jd in zip(tds, jds):
+        assert td.substeps == int(jd.substeps)
+        assert td.pressure_iterations == int(jd.pressure_iterations)
+        assert td.viscosity_iterations == int(jd.viscosity_iterations)
+        assert td.bucket_overflow == int(jd.bucket_overflow)
+        np.testing.assert_allclose(td.max_velocity, float(jd.max_velocity),
+                                   rtol=1e-4)
+    assert sum(int(jd.bucket_overflow) > 0 for jd in jds) >= 3
