@@ -10,7 +10,12 @@
    source, all started together, sm_90a) and prints the build time and
    ptxas' register / spill report.
 3. Holds each of the fourteen kernels against its plain PyTorch version
-   on the card, at the bench scene's shapes (128^3 grid, ~4.1M particles;
+   on the card, in fifteen records (K2's one-grid launches, pass B's, have
+   their own: gather_mac_one_grid), at the bench scene's shapes (128^3
+   grid, ~4.1M particles; K1 at pallas_split_terms 3 (exact products), 1
+   and 2 (the JAX package's bf16 splits), K2 torch.equal at each of them
+   with two grids at the particles and one grid at midpoints, some outside
+   the domain, K5 at each of them too;
    K3 mg_down and K4 mg_up torch.equal at every level of the pressure and
    the viscosity hierarchy, with bf16 and f32 operators, one line per level
    with its times, back to back and with L2 flushed, and its bound;
@@ -23,7 +28,8 @@
    128^3 pool of 4,456,448 particles, cap 16, F = 128), and
    times the kernel, the plain version and, where one exists, the one
    PyTorch call that computes the same function (for K7 one advanced
-   index of the image); states each kernel's bound. Then advances that
+   index of the image, for K2 grid_sample per component, with its
+   difference from K2); states each kernel's bound. Then advances that
    scene by two frames and holds the unfused route (build_mac_columns ->
    K7 -> combine_mac_samples) against K2 gather_mac on its particles and
    grids, with f32 and with bf16 images.
@@ -39,6 +45,10 @@
      substeps occur);
    - "bench_sort": the bench run with pass B "sort" (a re-sort by
      midpoint key instead of the midpoint plan);
+   - "bench_terms2": the bench run under pallas_split_terms 2, one warm
+     frame and 2 frames, beside the first frames of "bench" (substeps,
+     iterations, max|u|); fails if its max|u| equals bench's in every
+     frame (the rounding would then not act);
    printing each frame's diagnostics (substeps, stale substeps, overflow,
    iterations, residuals and tolerances), substeps/s, peak memory and the
    launch counts, in all and per substep (over the warm frame's substeps
@@ -74,8 +84,8 @@
      folded K1 ran and the unfolded K1 did not. One more frame of the same
      simulation then runs under torch.profiler (device busy time over wall
      time, and the largest device rows), and on its final state step 3 is
-     repeated at the 256^3 shapes: all fourteen kernels against their
-     plain versions (257^3 levels, ~35.5M particles; the plain scatters
+     repeated at the 256^3 shapes: all fifteen kernel records against
+     their plain versions (257^3 levels, ~35.5M particles; the plain scatters
      add their values in 16 runs of particles, to fit the card; K7 on the
      54-lane image, as the JAX step splits its gather there, and on the
      108-lane one if the card has the room; K9 and K10 over the first 2^23
@@ -105,6 +115,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RES = 128
 FRAMES = 5
+TERMS2_FRAMES = 2
 LARGE_RES = 256
 SCENE_DIR = os.path.join(ROOT, "build", "smoke_scenes")
 TABLE256 = dict(particle_engine=None, bucket_capacity=12)
@@ -188,6 +199,7 @@ def main() -> int:
             "particles": result["particles"],
             "timed_frames": result["timed_frames"],
             "substeps": result["substeps"],
+            "frame_substeps": [f["substeps"] for f in frames],
             "stale_substeps": result["stale_substeps"],
             "bucket_overflow": result["bucket_overflow"],
             "iterations": [[f["pressure_iterations"],
@@ -215,8 +227,22 @@ def main() -> int:
         pos = result.pop("sim").state.pos
         if name == "bench":
             bench_pos = pos   # the f32 run that "bench_bf16" is held against
+            bench_frames = result["frames"]
         del pos
         report(name, result)
+    result = smoke.run_main_path("cuda", RES, TERMS2_FRAMES,
+                                 pallas_split_terms=2)
+    del result["sim"]
+    side = {k: [[f[k] for f in frames[:TERMS2_FRAMES + 1]]
+                for frames in (result["frames"], bench_frames)]
+            for k in ("substeps", "pressure_iterations",
+                      "viscosity_iterations", "max_velocity")}
+    print(json.dumps({"path": "bench_terms2", "vs": "bench (terms 3)",
+                      **side}), flush=True)
+    if side["max_velocity"][0] == side["max_velocity"][1]:
+        result["failures"].append(
+            "max|u| equals the terms-3 run's in every frame")
+    report("bench_terms2", result)
     for name, dt, lift, overrides in smoke.ENGINE_PATHS:
         result = smoke.run_main_path("cuda", RES, FRAMES, dt=dt, lift=lift,
                                      **overrides)

@@ -76,12 +76,16 @@ kernels for the XLA cycle; "pallas" stores mg_operator_dtype and, as in
 the JAX package, raises a ValueError for smoothing other than V(1,1),
 which the fused kernels do not implement.
 
-pallas_split_terms (an int >= 3, default 3) is taken and changes nothing:
-it is the number of bf16 terms of the JAX package's one-hot MXU products,
-which the JAX package runs as one exact f32 product off the TPU at >= 3;
-the port's scatters and gathers take exact f32 products. 1 and 2 raise a
-ValueError: the JAX package then rounds the products (to ~2^-15 at 2),
-and that rounding is not ported.
+pallas_split_terms (an int, default 3) is the number of bf16 terms of the
+JAX package's one-hot MXU products. At 1 and 2 the JAX package rounds the
+value operand of its scatter and MAC-gather products, on the CPU as on the
+TPU, and so does the port: each value x is cut into bf16(x) and, at 2,
+bf16(x - bf16(x)) (round to nearest even); the P2G scatters (K1, K5) sum
+each term over a cell's particles on its own and add the sums at the end,
+and their slot tables hold the rounded positions; the MAC gathers (K2)
+weight the rounded face values. Any other value keeps the exact f32
+products: what the JAX package computes at >= 3 off the TPU (its <= 0 is a
+three-term split, within 2^-22 of them).
 """
 
 from __future__ import annotations
@@ -171,8 +175,8 @@ class SimConfig:
     # "bf16": G2P and the midpoint sample read grid values rounded to bf16
     # (module docstring).
     pallas_gather_dtype: str = "f32"
-    # Taken for the JAX package's scene files; >= 3, no effect (module
-    # docstring).
+    # bf16 terms of the particle kernels' products: 1 and 2 round them as
+    # the JAX package does, any other value is exact (module docstring).
     pallas_split_terms: int = 3
 
     max_substeps: int = 64
@@ -204,12 +208,6 @@ class SimConfig:
                      "pallas_midpoint_budget"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1")
-        if self.pallas_split_terms < 3:
-            raise ValueError(
-                f"pallas_split_terms={self.pallas_split_terms}: fewer than 3 "
-                "bf16 terms round the JAX package's one-hot products (to "
-                "~2^-15 at 2); that rounding is not ported, the port's "
-                "products are exact f32 (what >= 3 gives)")
         if self.extrapolation_layers is None:
             object.__setattr__(
                 self, "extrapolation_layers",

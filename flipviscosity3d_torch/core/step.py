@@ -170,10 +170,12 @@ def _pass_a(state: SimState, cfg: SimConfig, substep_idx):
     (re-sorted unless runs_stale); the plan leaves uncovered particles out
     of the scatter and the ranks come from the kernel."""
     dx, shape, cap = cfg.dx, cfg.grid_shape, cfg.sdf_cap
+    terms = cfg.pallas_split_terms
     if cfg.pallas_pass_a == "sort":
         stream = pp.tiled_sort(state.pos, state.vel, dx, shape)
         sums, table = pp.scatter_p2g_table(
-            stream.pos, stream.vel, stream.key, stream.rank, shape, dx, cap)
+            stream.pos, stream.vel, stream.key, stream.rank, shape, dx, cap,
+            terms=terms)
         overflow = (stream.rank >= cap).sum()
         return (stream.pos, stream.vel, stream.key, None, sums, table,
                 overflow)
@@ -184,7 +186,7 @@ def _pass_a(state: SimState, cfg: SimConfig, substep_idx):
     plan = pp.plan_pass_a(key, shape, cfg.pallas_passa_budget,
                           cfg.pallas_passa_factor)
     sums, table, counts = pp.scatter_p2g_table_stale(
-        pos, vel, key, plan, shape, dx, cap)
+        pos, vel, key, plan, shape, dx, cap, terms=terms)
     return (pos, vel, key, plan, sums, table,
             pp.table_rank_overflow(counts, cap))
 
@@ -358,7 +360,7 @@ def _step_pallas(state: SimState, dt: float, cfg: SimConfig,
     svx, svy, svz = vel_a.unbind(dim=1)
     gu, gv, gw, gsu, gsv, gsw = _gather_grids(cfg, u, v, w, su, sv, sw)
     gm = pp.gather_mac(spx, spy, spz, key_a, [gu, gsu], [gv, gsv],
-                       [gw, gsw], dx, shape)
+                       [gw, gsw], dx, shape, cfg.pallas_split_terms)
     nu, nv, nw, ou, ov, ow = gm.unbind(dim=0)   # rows g*3 + comp
     if plan_a is not None:
         # uncovered particles advect ballistically: new == old == own
@@ -393,7 +395,8 @@ def _step_pallas(state: SimState, dt: float, cfg: SimConfig,
     else:
         key_m, fields = pp.sort_by_key(key_m, fields)
     bmx, bmy, bmz, bpx, bpy, bpz, bvx, bvy, bvz = fields
-    gmb = pp.gather_mac(bmx, bmy, bmz, key_m, [gu], [gv], [gw], dx, shape)
+    gmb = pp.gather_mac_one_grid(bmx, bmy, bmz, key_m, gu, gv, gw, dx, shape,
+                                 cfg.pallas_split_terms)
     inside_m = _inside(bmx, bmy, bmz, shape, dx)
     zero = torch.zeros_like(bmx)
     v2 = [torch.where(inside_m, gmb[c], zero) for c in range(3)]

@@ -5,7 +5,8 @@
 // Replaces flipviscosity3d_tpu/ops/pallas_particles.py::scatter_p2g_table
 // with inkernel_rank=True (bodies _p2g_chunk_values, _table_chunk_values and
 // _rank_from_accumulator), the stale pass A's scatter, with fold_sums False
-// (row stride 108) and True (row stride 112, _p2g_chunk_values_folded).
+// (row stride 108) and True (row stride 112, _p2g_chunk_values_folded), at
+// pallas_split_terms 1, 2 (split products, p2g_wyvill.cuh) and exact.
 //
 // Input: particles in their current order, cut into chunks of 512; a
 // particle takes part iff covered[q] (its (chunk, home tile) incidence lies
@@ -39,7 +40,10 @@
 // differs only in the last loop, which writes the tile's sums out: the
 // shared-memory rows stay 108 wide (112 would not fit a block's 227 KB), the
 // rows in device memory are kStride apart and their pad lanes are written
-// as zero.
+// as zero. At 1 split term the shared-memory sums take the bf16 terms; at 2
+// the second terms' sums have no room there and are summed in the output
+// rows themselves (zeroed first, each element by one lane), then added to
+// the first terms' sums as the tile is written out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,8 +52,10 @@
 
 namespace {
 
+using flip3d::bf16_term;
 using flip3d::Face;
 using flip3d::face_of;
+using flip3d::split_round;
 using flip3d::velocity_of;
 using flip3d::wyvill;
 
@@ -63,7 +69,21 @@ constexpr size_t kSmemBytes =
     + sizeof(int) * kStage              // staged local cell id, -1 if absent
     + sizeof(float) * 6 * kStage;       // staged px, py, pz, vx, vy, vz
 
-template <int kStride>
+// Adds x to lane l of a cell's sums as a split product: its first term to
+// the shared-memory row s, at 2 terms its second to the output row g.
+template <int kTerms>
+__device__ __forceinline__ void add_split(float* s, float* g, int l,
+                                          float x) {
+  if (kTerms == 1 || kTerms == 2) {
+    const float t1 = bf16_term(x);
+    s[l] = s[l] + t1;
+    if (kTerms == 2) g[l] = g[l] + bf16_term(x - t1);
+  } else {
+    s[l] = s[l] + x;
+  }
+}
+
+template <int kStride, int kTerms>
 __global__ void __launch_bounds__(kThreads, 1) p2g_scatter_stale_kernel(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const int* __restrict__ key, const unsigned char* __restrict__ covered,
@@ -83,6 +103,15 @@ __global__ void __launch_bounds__(kThreads, 1) p2g_scatter_stale_kernel(
   const int ti = tile / (ntj * ntk), tj = (tile / ntk) % ntj, tk = tile % ntk;
 
   for (int e = tid; e < kCells * kLanes; e += kThreads) s_sums[e] = 0.f;
+  // the output row of local cell c, standard i-major layout
+  auto out_row = [&](int c) {
+    return sums + (((int64_t)(ti * 8 + (c >> 6)) * J +
+                    (tj * 8 + ((c >> 3) & 7))) * K + tk * 8 + (c & 7)) *
+                      kStride;
+  };
+  if (kTerms == 2)
+    for (int e = tid; e < kCells * kLanes; e += kThreads)
+      out_row(e / kLanes)[e % kLanes] = 0.f;
 
   const bool has2 = lane + 32 < 54;
   const Face f0 = face_of(lane);
@@ -129,21 +158,23 @@ __global__ void __launch_bounds__(kThreads, 1) p2g_scatter_stale_kernel(
                     gk = tk * 8 + (c & 7);
           const float fgi = (float)gi, fgj = (float)gj, fgk = (float)gk;
           float* row = s_sums + c * kLanes;
+          float* grow = kTerms == 2 ? out_row(c) : nullptr;
           const float a =
               wyvill(f0, fgi, fgj, fgk, px, py, pz, dx, c1, c2, c3, r2);
-          row[lane] = row[lane] + a;
-          row[54 + lane] = row[54 + lane] + a * velocity_of(f0, vx, vy, vz);
+          add_split<kTerms>(row, grow, lane, a);
+          add_split<kTerms>(row, grow, 54 + lane,
+                            a * velocity_of(f0, vx, vy, vz));
           if (has2) {
             const float b =
                 wyvill(f1, fgi, fgj, fgk, px, py, pz, dx, c1, c2, c3, r2);
-            row[lane + 32] = row[lane + 32] + b;
-            row[54 + lane + 32] =
-                row[54 + lane + 32] + b * velocity_of(f1, vx, vy, vz);
+            add_split<kTerms>(row, grow, lane + 32, b);
+            add_split<kTerms>(row, grow, 54 + lane + 32,
+                              b * velocity_of(f1, vx, vy, vz));
           }
           if (rank < cap && lane < 4) {
             const int64_t cell = ((int64_t)gi * J + gj) * K + gk;
-            table[(cell * cap + rank) * 4 + lane] =
-                lane == 0 ? px : (lane == 1 ? py : (lane == 2 ? pz : 1.0f));
+            table[(cell * cap + rank) * 4 + lane] = split_round<kTerms>(
+                lane == 0 ? px : (lane == 1 ? py : (lane == 2 ? pz : 1.0f)));
           }
         }
       }
@@ -153,10 +184,13 @@ __global__ void __launch_bounds__(kThreads, 1) p2g_scatter_stale_kernel(
 
   for (int e = tid; e < kCells * kStride; e += kThreads) {
     const int c = e / kStride, l = e - c * kStride;
-    const int64_t cell =
-        ((int64_t)(ti * 8 + (c >> 6)) * J + (tj * 8 + ((c >> 3) & 7))) * K +
-        tk * 8 + (c & 7);
-    sums[cell * kStride + l] = l < kLanes ? s_sums[c * kLanes + l] : 0.f;
+    float* row = out_row(c);
+    float v = 0.f;
+    if (l < kLanes) {
+      v = s_sums[c * kLanes + l];
+      if (kTerms == 2) v = v + row[l];
+    }
+    row[l] = v;
   }
   const int c = warp * 32 + lane;
   const int64_t cell =
@@ -168,17 +202,25 @@ __global__ void __launch_bounds__(kThreads, 1) p2g_scatter_stale_kernel(
     slots[r] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+template <int kStride>
+decltype(&p2g_scatter_stale_kernel<kStride, 3>) kernel_of(int terms) {
+  if (terms == 1) return p2g_scatter_stale_kernel<kStride, 1>;
+  if (terms == 2) return p2g_scatter_stale_kernel<kStride, 2>;
+  if (terms == 3) return p2g_scatter_stale_kernel<kStride, 3>;
+  return nullptr;
+}
+
 }  // namespace
 
 extern "C" int flip3d_p2g_scatter_stale(
     const float* pos, const float* vel, const int* key,
     const unsigned char* covered, int n, const int* tile_ptr,
     const int* tile_chunks, int I, int J, int K, int cap, float dx, float c1,
-    float c2, float c3, float r2, int sum_stride, float* sums, float* table,
-    int* counts, void* stream) {
-  decltype(&p2g_scatter_stale_kernel<108>) kernel = nullptr;
-  if (sum_stride == 108) kernel = p2g_scatter_stale_kernel<108>;
-  if (sum_stride == 112) kernel = p2g_scatter_stale_kernel<112>;
+    float c2, float c3, float r2, int sum_stride, int terms, float* sums,
+    float* table, int* counts, void* stream) {
+  decltype(&p2g_scatter_stale_kernel<108, 3>) kernel = nullptr;
+  if (sum_stride == 108) kernel = kernel_of<108>(terms);
+  if (sum_stride == 112) kernel = kernel_of<112>(terms);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);

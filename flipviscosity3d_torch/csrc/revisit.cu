@@ -18,8 +18,8 @@
 // sides).
 //
 // Scatter: the sort makes each cell's particles one contiguous run, so one
-// warp owns one cell, as in p2g_scatter.cu: lane 0 finds the run by two
-// binary searches of the keys (sorted_runs.cuh), the warp walks it in stream order with each
+// warp owns one cell: it finds the run by two 32-lane searches of the keys
+// (sorted_runs.cuh), walks it in stream order with each
 // lane summing its floats of every row (coalesced 128-float reads), and
 // writes the cell's row, zero for an empty run. No atomics: the order of
 // summation is the stream's, the same in every call. Rows wider than 128
@@ -44,8 +44,8 @@ __global__ void scatter_revisit_kernel(const int* __restrict__ key, int n,
   const int lane = threadIdx.x & 31;
   const int64_t cell = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (cell >= n_cells) return;
-  int start, end;
-  flip3d::warp_run_of(key, n, (int)cell, start, end);
+  const int start = flip3d::warp_lower_bound(key, 0, n, (int)cell);
+  const int end = flip3d::warp_lower_bound(key, start, n, (int)cell + 1);
   for (int f0 = 0; f0 < F; f0 += 128) {
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int q = start; q < end; ++q) {

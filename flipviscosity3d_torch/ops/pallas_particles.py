@@ -40,6 +40,10 @@ stacks the 2x3x3 window of each MAC grid into an F-major tile image
 `detile` (K8) copies a W-major tile image (n_tiles, W, F) back to
 (I, J, K, F). `step` does not take that route: it gathers fused.
 
+The scatters and the MAC gather take the JAX package's pallas_split_terms
+as `terms`: at 1 and 2 they round their values as its split one-hot
+products do (split_terms, split_round; config.py).
+
 Every kernel wrapper takes the plain PyTorch version for CPU tensors and
 launches its CUDA kernel (csrc/*.cu) for CUDA tensors.
 """
@@ -294,6 +298,26 @@ def wyvill_constants(dx):
             _f32((22.0 / 9.0) / dx**2), _f32(dx * dx))
 
 
+def split_terms(x, terms: int):
+    """The bf16 terms of the JAX package's split products
+    (flipviscosity3d_tpu/ops/pallas_particles.py::_split3) at `terms` 1 or
+    2, widened to f32: (bf16(x),) or (bf16(x), bf16(x - bf16(x))), rounded
+    to nearest even. Any other `terms` is the exact product: (x,)."""
+    if terms not in (1, 2):
+        return (x,)
+    t1 = x.to(torch.bfloat16).float()
+    if terms == 1:
+        return (t1,)
+    return t1, (x - t1).to(torch.bfloat16).float()
+
+
+def split_round(x, terms: int):
+    """x as a split product with a 0/1 one-hot sees it: the sum of its
+    split_terms (exact in f32)."""
+    parts = split_terms(x, terms)
+    return parts[0] if len(parts) == 1 else parts[0] + parts[1]
+
+
 # ---------------------------------------------------------------------------
 # K1: P2G sums + liquid-SDF slot table
 # ---------------------------------------------------------------------------
@@ -306,11 +330,14 @@ def _fold(sums4):
 
 
 def scatter_p2g_table_ref(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
-                          fold_sums=None, slabs: int = 1):
+                          fold_sums=None, slabs: int = 1, terms: int = 3):
     """Plain version of scatter_p2g_table (index_add over cells). `slabs`
     cuts the stream into that many runs of particles, added one after the
     other into the same sums and table, so that the (N, 108) values need not
-    exist at once: the same result for a large stream in less memory."""
+    exist at once: the same result for a large stream in less memory. At
+    `terms` 1 or 2 each of the 108 values is cut into its split_terms, each
+    term summed over a cell by itself and the sums added at the end, and the
+    table holds split_round of the positions."""
     if fold_sums is None:
         fold_sums = large_grid(grid_shape)
     dev = pos_s.device
@@ -322,7 +349,8 @@ def scatter_p2g_table_ref(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
                       for c in (l // 18 for l in range(54))],
                      dtype=torch.float32, device=dev)
     c1, c2, c3, r2 = wyvill_constants(dx)
-    sums = torch.zeros((n_cells, N_P2G), dtype=torch.float32, device=dev)
+    sums = [torch.zeros((n_cells, N_P2G), dtype=torch.float32, device=dev)
+            for _ in range(2 if terms == 2 else 1)]
     table = torch.zeros((n_cells * cap, 4), dtype=torch.float32, device=dev)
     per_slab = -(-max(pos_s.shape[0], 1) // slabs)
     for pos, vel, key, rk in zip(*(t.split(per_slab)
@@ -335,17 +363,27 @@ def scatter_p2g_table_ref(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
         wgt = 1.0 - c1 * d2 * d2 * d2 + c2 * d2 * d2 - c3 * d2
         wgt = torch.where(d2 < r2, wgt, torch.zeros_like(wgt))
         std = (gi * grid_shape[1] + gj) * grid_shape[2] + gk
-        sums.index_add_(0, std, torch.cat([wgt, wgt * vel[:, comp]], dim=1))
+        vals = torch.cat([wgt, wgt * vel[:, comp]], dim=1)
+        for acc, part in zip(sums, split_terms(vals, terms)):
+            acc.index_add_(0, std, part)
         keep = rk < cap
         table[std[keep] * cap + rk[keep].long()] = torch.cat(
-            [pos, torch.ones_like(pos[:, :1])], dim=1)[keep]
-    sums = sums.reshape(*grid_shape, N_P2G)
+            [split_round(pos, terms), torch.ones_like(pos[:, :1])],
+            dim=1)[keep]
+    sums = (sums[0] if len(sums) == 1 else sums[0] + sums[1]).reshape(
+        *grid_shape, N_P2G)
     return (_fold(sums) if fold_sums else sums,
             table.reshape(*grid_shape, cap, 4))
 
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_SCATTER_ARGS = (_P,) * 4 + (_I,) * 5 + (_F,) * 5 + (_I,) + (_P,) * 2 + (_P,)
+_SCATTER_ARGS = (_P,) * 4 + (_I,) * 5 + (_F,) * 5 + (_I,) * 2 + (_P,) * 2 + (
+    _P,)
+
+
+def _kernel_terms(terms: int) -> int:
+    """The kernels' terms argument: 1 or 2, or 3 for the exact product."""
+    return terms if terms in (1, 2) else 3
 
 
 def _empty_sums(grid_shape, fold_sums, device):
@@ -358,19 +396,23 @@ def _empty_sums(grid_shape, fold_sums, device):
 
 
 def scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
-                      fold_sums=None):
+                      fold_sums=None, terms: int = 3):
     """Per-cell P2G sums and liquid-SDF slot table of a tile-key-sorted
-    stream -> (sums f32, table (I,J,K,cap,4) f32). Particles of rank >= cap
-    are left out of the table only. sums is (I,J,K,108), or, with
-    fold_sums (None: at >= 2^24 cells), K-folded (I, J, K*SUML): the same
-    kernel with a row stride of SUML floats and the pad lanes written as
-    zero, counted as scatter_p2g_table_folded."""
+    stream -> (sums f32, table (I,J,K,cap,4) f32). `rank` holds each
+    particle's rank in its cell: its cell's particles have the ranks 0 ..
+    count - 1 (tiled_sort's run ranks). Particles of rank >= cap are left
+    out of the table only. Each cell's particles are summed in stream
+    order. sums is (I,J,K,108), or, with fold_sums (None: at >= 2^24
+    cells), K-folded (I, J, K*SUML): the same kernel with a row stride of
+    SUML floats and the pad lanes written as zero, counted as
+    scatter_p2g_table_folded. `terms` 1 or 2 rounds the values as the JAX
+    package's split products do (split_terms; config.py)."""
     check_grid(grid_shape)
     if fold_sums is None:
         fold_sums = large_grid(grid_shape)
     if _build.on_cpu(pos_s, "scatter_p2g_table"):
         return scatter_p2g_table_ref(pos_s, vel_s, key_s, rank, grid_shape,
-                                     dx, cap, fold_sums)
+                                     dx, cap, fold_sums, terms=terms)
     n = pos_s.shape[0]
     _build.require(pos_s, "pos_s", torch.float32, (n, 3))
     _build.require(vel_s, "vel_s", torch.float32, (n, 3))
@@ -387,17 +429,18 @@ def scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
         "flip3d_p2g_scatter", _SCATTER_ARGS,
         pos_s.data_ptr(), vel_s.data_ptr(), key_s.data_ptr(),
         rank.data_ptr(), n, ni, nj, nk, cap, _f32(dx), c1, c2, c3, r2,
-        stride, sums.data_ptr(), table.data_ptr())
+        stride, _kernel_terms(terms), sums.data_ptr(), table.data_ptr())
     (scatter_p2g_table_folded if fold_sums
      else scatter_p2g_table).launches += 1
     return sums, table
 
 
-def scatter_p2g_table_folded(pos_s, vel_s, key_s, rank, grid_shape, dx, cap):
+def scatter_p2g_table_folded(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
+                             terms: int = 3):
     """scatter_p2g_table with the fold forced, at any grid size; its
     `launches` counts every folded launch of that kernel."""
     return scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
-                             fold_sums=True)
+                             fold_sums=True, terms=terms)
 
 
 scatter_p2g_table.launches = 0
@@ -415,17 +458,18 @@ def table_rank_overflow(counts, cap):
 
 
 def scatter_p2g_table_stale_ref(pos, vel, key, covered, grid_shape, dx,
-                                cap, fold_sums=None, slabs: int = 1):
+                                cap, fold_sums=None, slabs: int = 1,
+                                terms: int = 3):
     """Plain version of scatter_p2g_table_stale: the covered particles' ranks
     by a stable sort of their keys, then scatter_p2g_table_ref (in `slabs`
-    runs of particles)."""
+    runs of particles, at `terms`)."""
     key_c = key[covered]
     key_s, perm = torch.sort(key_c, stable=True)
     rank = torch.empty_like(key_s, dtype=torch.int32)
     rank[perm] = run_ranks(key_s, torch.int32)
     sums, table = scatter_p2g_table_ref(pos[covered], vel[covered], key_c,
                                         rank, grid_shape, dx, cap, fold_sums,
-                                        slabs)
+                                        slabs, terms)
     gi, gj, gk = decode_key(key_c.long(), grid_shape)
     std = (gi * grid_shape[1] + gj) * grid_shape[2] + gk
     counts = torch.bincount(std, minlength=grid_shape[0] * grid_shape[1]
@@ -434,11 +478,11 @@ def scatter_p2g_table_stale_ref(pos, vel, key, covered, grid_shape, dx,
 
 
 _STALE_ARGS = (_P,) * 4 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_F,) * 5 + (
-    _I,) + (_P,) * 3 + (_P,)
+    _I,) * 2 + (_P,) * 3 + (_P,)
 
 
 def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
-                            cap, fold_sums=None):
+                            cap, fold_sums=None, terms: int = 3):
     """scatter_p2g_table over a stream in any order, restricted to the
     plan's covered particles -> (sums f32 as scatter_p2g_table's, folded
     under the same rule, table (I,J,K,cap,4) f32, counts (I,J,K) int32). A
@@ -446,13 +490,15 @@ def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
     particles of its cell; counts holds every covered particle of the cell,
     ranks >= cap included. The inputs are the stream as it is (the TPU's
     stale_payload rows have no counterpart: the kernel decodes the keys
-    itself). Folded launches count as scatter_p2g_table_stale_folded."""
+    itself). Folded launches count as scatter_p2g_table_stale_folded.
+    `terms` rounds as scatter_p2g_table's does."""
     check_grid(grid_shape)
     if fold_sums is None:
         fold_sums = large_grid(grid_shape)
     if _build.on_cpu(pos, "scatter_p2g_table_stale"):
         return scatter_p2g_table_stale_ref(pos, vel, key, plan.covered,
-                                           grid_shape, dx, cap, fold_sums)
+                                           grid_shape, dx, cap, fold_sums,
+                                           terms=terms)
     n = pos.shape[0]
     ni, nj, nk = grid_shape
     n_tiles = (ni * nj * nk) // W
@@ -476,18 +522,19 @@ def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
         pos.data_ptr(), vel.data_ptr(), key.data_ptr(),
         plan.covered.data_ptr(), n, plan.tile_ptr.data_ptr(),
         plan.tile_chunks.data_ptr(), ni, nj, nk, cap, _f32(dx), c1, c2, c3,
-        r2, stride, sums.data_ptr(), table.data_ptr(), counts.data_ptr())
+        r2, stride, _kernel_terms(terms), sums.data_ptr(), table.data_ptr(),
+        counts.data_ptr())
     (scatter_p2g_table_stale_folded if fold_sums
      else scatter_p2g_table_stale).launches += 1
     return sums, table, counts
 
 
 def scatter_p2g_table_stale_folded(pos, vel, key, plan: ScatterPlan,
-                                   grid_shape, dx, cap):
+                                   grid_shape, dx, cap, terms: int = 3):
     """scatter_p2g_table_stale with the fold forced, at any grid size; its
     `launches` counts every folded launch of that kernel."""
     return scatter_p2g_table_stale(pos, vel, key, plan, grid_shape, dx, cap,
-                                   fold_sums=True)
+                                   fold_sums=True, terms=terms)
 
 
 scatter_p2g_table_stale.launches = 0
@@ -570,8 +617,10 @@ _MAC_OFFSETS = ((0.0, 0.5, 0.5), (0.5, 0.0, 0.5), (0.5, 0.5, 0.0))
 
 
 def gather_mac_ref(px, py, pz, keys, grids_u, grids_v, grids_w, dx,
-                   grid_shape):
-    """Plain version of gather_mac."""
+                   grid_shape, terms: int = 3):
+    """Plain version of gather_mac: per component and grid the 18 window
+    faces in window order, each weight a product over the axes x, y, z,
+    added one by one."""
     home = decode_key(keys.long(), grid_shape)
     ps = (px, py, pz)
     comp_grids = (grids_u, grids_v, grids_w)
@@ -586,7 +635,7 @@ def gather_mac_ref(px, py, pz, keys, grids_u, grids_v, grids_w, dx,
             fr.append(f - b)
             delta.append(b.to(torch.int64) - home[ax])
         for g in range(n_grids):
-            grid = comp_grids[comp][g]
+            grid = split_round(comp_grids[comp][g], terms)
             acc = torch.zeros_like(px)
             for oidx in range(18):
                 o = p2g_abs_offset(comp, oidx)
@@ -610,15 +659,26 @@ def gather_mac_ref(px, py, pz, keys, grids_u, grids_v, grids_w, dx,
     return out
 
 
-_GATHER_ARGS = (_P,) * 4 + (_I,) * 2 + (_P,) * 6 + (_I,) * 3 + (_F,) + (
-    _P,) + (_P,)
+_GATHER_ARGS = (_P,) * 4 + (_I,) * 2 + (_P,) * 6 + (_I,) * 3 + (_F,) * 2 + (
+    _I,) + (_P,) + (_P,)
 
 
-def gather_mac(px, py, pz, keys, grids_u, grids_v, grids_w, dx, grid_shape):
+def _exact_inverse(dx) -> float:
+    """1 / dx where f32(dx) is a power of two (p * (1 / dx) is then p / dx,
+    bit for bit), else 0 (the kernel divides)."""
+    mantissa, _ = np.frexp(np.float32(dx))
+    return _f32(1.0 / _f32(dx)) if mantissa == 0.5 else 0.0
+
+
+def gather_mac(px, py, pz, keys, grids_u, grids_v, grids_w, dx, grid_shape,
+               terms: int = 3):
     """Trilinear MAC samples of n_grids = len(grids_u) in {1, 2} velocity
     grids at each particle -> (3*n_grids, N) f32, rows grid-major
     (g*3 + comp). Only the 2x3x3 window of the particle's (clamped) home cell
-    `keys` counts; faces outside a face grid read 0."""
+    `keys` counts; faces outside a face grid read 0. Keys may come in any
+    order. `terms` 1 or 2 rounds each face value as the JAX package's split
+    products do (split_round) before it is weighted. Launches of two grids
+    count as gather_mac, of one grid as gather_mac_one_grid."""
     check_grid(grid_shape)
     n_grids = len(grids_u)
     if n_grids not in (1, 2) or len(grids_v) != n_grids or \
@@ -626,7 +686,7 @@ def gather_mac(px, py, pz, keys, grids_u, grids_v, grids_w, dx, grid_shape):
         raise ValueError("gather_mac: 1 or 2 grids per component")
     if _build.on_cpu(px, "gather_mac"):
         return gather_mac_ref(px, py, pz, keys, grids_u, grids_v, grids_w,
-                              dx, grid_shape)
+                              dx, grid_shape, terms)
     n = px.shape[0]
     for name, t in (("px", px), ("py", py), ("pz", pz)):
         _build.require(t, name, torch.float32, (n,))
@@ -646,12 +706,22 @@ def gather_mac(px, py, pz, keys, grids_u, grids_v, grids_w, dx, grid_shape):
     _build.launch(
         "flip3d_gather_mac", _GATHER_ARGS,
         px.data_ptr(), py.data_ptr(), pz.data_ptr(), keys.data_ptr(),
-        n, n_grids, *ptrs, ni, nj, nk, _f32(dx), out.data_ptr())
-    gather_mac.launches += 1
+        n, n_grids, *ptrs, ni, nj, nk, _f32(dx), _exact_inverse(dx),
+        _kernel_terms(terms), out.data_ptr())
+    (gather_mac if n_grids == 2 else gather_mac_one_grid).launches += 1
     return out
 
 
+def gather_mac_one_grid(px, py, pz, keys, grid_u, grid_v, grid_w, dx,
+                        grid_shape, terms: int = 3):
+    """gather_mac of one grid per component (pass B's midpoint sample); its
+    `launches` counts every one-grid launch of that kernel."""
+    return gather_mac(px, py, pz, keys, [grid_u], [grid_v], [grid_w], dx,
+                      grid_shape, terms)
+
+
 gather_mac.launches = 0
+gather_mac_one_grid.launches = 0
 
 
 # ---------------------------------------------------------------------------

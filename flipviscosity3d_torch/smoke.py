@@ -106,6 +106,9 @@ KERNELS = (
      "scripts/pallas_particle_proto.py:185"),
     (proto.tile_gather, "flipviscosity3d_torch/csrc/tile_proto.cu",
      "scripts/pallas_particle_proto.py:251"),
+    (pp.gather_mac_one_grid, "flipviscosity3d_torch/csrc/gather_mac.cu",
+     "flipviscosity3d_tpu/ops/pallas_particles.py:1172 (n_grids=1, pass B's"
+     " midpoint sample)"),
 )
 # the kernels of the hardware-check path (run_hw_check)
 HW_CHECK_KERNELS = ("gather_rows", "detile", "scatter_revisit",
@@ -168,9 +171,11 @@ def _scatter_names(cfg: SimConfig):
 def path_kernels(cfg: SimConfig) -> list:
     """The kernels a substep under `cfg` launches on the card: the V-cycle's
     under a multigrid preconditioner, and under the "pallas" engine its
-    scatter and gather (and gather_rows8 under the kernel pushback)."""
+    scatter and its gathers of two grids (pass A) and one (pass B), and
+    gather_rows8 under the kernel pushback."""
     pallas = cfg.particle_engine == "pallas"
-    names = [_scatter_names(cfg)[0], "gather_mac"] if pallas else []
+    names = ([_scatter_names(cfg)[0], "gather_mac", "gather_mac_one_grid"]
+             if pallas else [])
     if "multigrid" in (cfg.pressure_preconditioner,
                        cfg.viscosity_preconditioner):
         names += ["mg_down", "mg_up"]
@@ -485,20 +490,93 @@ def _scatter_checks(label, kernel, plain, cfg: SimConfig, extra) -> tuple:
     return checks, fchecks
 
 
+# the pallas_split_terms settings the particle kernels are held at: the
+# exact products (the default) first, then the JAX package's two splits
+SPLIT_TERMS = (3, 1, 2)
+
+
+def _terms_label(terms: int) -> str:
+    return "" if terms == 3 else f"terms {terms}: "
+
+
+def scatter_bound(inputs, n_cells: int, cap: int, stride: int) -> dict:
+    """K1's bound: its inputs (positions, velocities, keys, ranks) read
+    once, a row of `stride` sums and cap slots written per cell, and the
+    Wyvill weights and sums of the 54 window faces of every particle."""
+    n = inputs[0].shape[0]
+    return bound(_nbytes(*inputs) + (4 * stride + 16 * cap) * n_cells,
+                 _P2G_FLOPS_PER_FACE * 54 * n)
+
+
+def gather_bound(args) -> dict:
+    """K2's bound for gather_mac's arguments (px, py, pz, keys, grids_u,
+    grids_v, grids_w, ...): positions, keys and every grid read once, 3
+    samples per grid written per particle; per particle 3 divisions and per
+    component 12 operations for the axes' fractions and weights, 16 for the
+    8 corner weights and 16 per grid to weight and add the corners."""
+    px, py, pz, keys, gu, gv, gw = args[:7]
+    n, n_grids = px.shape[0], len(gu)
+    return bound(_nbytes(px, py, pz, keys, *gu, *gv, *gw) + 12 * n_grids * n,
+                 (3 + 3 * (12 + 16 + 16 * n_grids)) * n)
+
+
+def midpoints(pos, cfg: SimConfig, gen):
+    """Pass B's stand-in midpoints for the kernel checks: the positions
+    moved by normal steps of 3 cells per axis, in their order, so that some
+    leave the domain -> (mx, my, mz, their tile-major keys, how many lie
+    outside)."""
+    dx, shape = cfg.dx, cfg.grid_shape
+    mid = pos + 3.0 * dx * torch.randn(pos.shape, generator=gen,
+                                       device=pos.device)
+    outside = int(((mid < 0) | (mid >= shape[0] * dx)).any(dim=1).sum())
+    return (*(mid[:, a].contiguous() for a in range(3)),
+            pp.key_of_position(mid, dx, shape), outside)
+
+
+def grid_sample_mac(px, py, pz, grids_u, grids_v, grids_w, dx, grid_shape):
+    """The library call that computes K2's pass-A samples: per component one
+    torch.nn.functional.grid_sample (trilinear, zeros outside the grid,
+    align_corners=True) with the grids as channels, at the positions in the
+    component's index frame. Equal to gather_mac where every particle's
+    corners lie in its home cell's window, as pass A's do. The inputs are
+    laid out here; the returned function makes the three calls -> (3 *
+    n_grids, N) samples, rows g*3 + comp."""
+    n = px.shape[0]
+    calls = []
+    for comp, grids in enumerate((grids_u, grids_v, grids_w)):
+        image = torch.stack(list(grids))[None]        # (1, G, D, H, W)
+        size = image.shape[2:]
+        coords = [(p / dx - pp._MAC_OFFSETS[comp][ax]) * (2.0 / (size[ax] - 1))
+                  - 1.0 for ax, p in enumerate((px, py, pz))]
+        # grid_sample's last axis runs (W, H, D): (z, y, x)
+        where = torch.stack(coords[::-1], dim=1).reshape(1, 1, 1, n, 3)
+        calls.append((image, where))
+
+    def run():
+        out = [torch.nn.functional.grid_sample(
+            image, where, mode="bilinear", padding_mode="zeros",
+            align_corners=True).reshape(-1, n) for image, where in calls]
+        return torch.stack(out, dim=1).reshape(-1, n)
+
+    return run
+
+
 def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
                   ref_slabs: int = 1) -> list:
     """Each kernel against its plain version on the card at the shapes the
     main paths give it (the plain scatters in `ref_slabs` runs of particles:
     one at 128^3, more where their values would not fit the card beside the
-    sums): K1 on the scene's sorted particles; K2 with two
-    grids at the particles and one grid at midpoints (some outside the
-    domain); K3/K4 torch.equal at every level of the pressure (1,I,J,K) and
-    the viscosity (3,I+1,J+1,K+1) hierarchy with the bf16 and the f32
-    operator, each level timed cold and warm beside its bound (the mg_down
-    record's `levels`), and a whole V-cycle of each (_vcycle_records); K5
-    and K6 through plans of cfg's budgets over the two stale_orders of the
-    sorted particles, timed on "falling"; K1 and K5 in
-    both layouts of their sums, whichever the grid's size would choose
+    sums): K1 on the scene's sorted particles at each of SPLIT_TERMS; K2
+    torch.equal at each of them with two grids at the particles and, as the
+    gather_mac_one_grid record, one grid at midpoints (some outside the
+    domain), its library call grid_sample_mac; K3/K4 torch.equal at every
+    level of the pressure (1,I,J,K) and the viscosity (3,I+1,J+1,K+1)
+    hierarchy with the bf16 and the f32 operator, each level timed cold and
+    warm beside its bound (the mg_down record's `levels`), and a whole
+    V-cycle of each (_vcycle_records); K5 and K6 through plans of cfg's
+    budgets over the two stale_orders of the sorted particles, timed on
+    "falling" (where K5 is also held at the split terms); K1 and K5 in both
+    layouts of their sums, whichever the grid's size would choose
     (_scatter_checks); K7-K10 (_column_records); K11 and K12 on the
     prototype's own input (_proto_records). Returns
     one record per kernel with its checks, the kernel's, the plain version's
@@ -514,32 +592,38 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     folded_bytes = (4 * pp.SUML + 16 * cap) * n_cells
     records = {}
 
-    # K1: P2G scatter + slot table
+    # K1: P2G scatter + slot table, at every split-terms setting
     vel = 0.5 * torch.randn((n, 3), generator=gen, device=dev)
     stream = pp.tiled_sort(state.pos, vel, dx, shape)
     args = (stream.pos, stream.vel, stream.key, stream.rank, shape, dx, cap)
     overflow = int((stream.rank >= cap).sum())
 
-    def k1(fold):
-        return pp.scatter_p2g_table(*args, fold_sums=fold)
+    def k1(fold, terms=3):
+        return pp.scatter_p2g_table(*args, fold_sums=fold, terms=terms)
 
-    def k1_plain(fold):
+    def k1_plain(fold, terms=3):
         return pp.scatter_p2g_table_ref(*args, fold_sums=fold,
-                                        slabs=ref_slabs)
+                                        slabs=ref_slabs, terms=terms)
 
     def k1_overflow(got, want):
         occupied = int(got[1][..., 3].sum(dtype=torch.float64))
         return [{"check": "overflow", "kernel": n - occupied,
                  "plain": overflow, "ok": n - occupied == overflow}]
 
-    checks, fchecks = _scatter_checks("", k1, k1_plain, cfg, k1_overflow)
-    flops = _P2G_FLOPS_PER_FACE * 54 * n
+    checks, fchecks = [], []
+    for terms in SPLIT_TERMS:
+        c, f = _scatter_checks(
+            _terms_label(terms), lambda fold, t=terms: k1(fold, t),
+            lambda fold, t=terms: k1_plain(fold, t), cfg,
+            k1_overflow if terms == 3 else lambda got, want: [])
+        checks += c
+        fchecks += f
     records["scatter_p2g_table"] = (
         checks, _times(lambda: k1(False), lambda: k1_plain(False)),
-        bound(_nbytes(*args[:4]) + table_bytes, flops))
+        scatter_bound(args[:4], n_cells, cap, pp.N_P2G))
     records["scatter_p2g_table_folded"] = (
         fchecks, _times(lambda: k1(True), lambda: k1_plain(True)),
-        bound(_nbytes(*args[:4]) + folded_bytes, flops))
+        scatter_bound(args[:4], n_cells, cap, pp.SUML))
 
     # K2: G2P gather, pass A (2 grids) and pass B (1 grid at midpoints)
     faces = (cfg.u_shape, cfg.v_shape, cfg.w_shape)
@@ -548,12 +632,10 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     gu, gv, gw = ([grids[0][c], grids[1][c]] for c in range(3))
     px, py, pz = (stream.pos[:, a].contiguous() for a in range(3))
     args_a = (px, py, pz, stream.key, gu, gv, gw, dx, shape)
-    mid = stream.pos + 3.0 * dx * torch.randn((n, 3), generator=gen,
-                                              device=dev)
-    mx, my, mz = (mid[:, a].contiguous() for a in range(3))
-    key_m = pp.key_of_position(mid, dx, shape)
-    args_b = (mx, my, mz, key_m, gu[:1], gv[:1], gw[:1], dx, shape)
-    outside = int(((mid < 0) | (mid >= shape[0] * dx)).any(dim=1).sum())
+    mx, my, mz, key_m, outside = midpoints(stream.pos, cfg, gen)
+    args_b = (mx, my, mz, key_m, gu[0], gv[0], gw[0], dx, shape)
+    plain_b = (mx, my, mz, key_m, gu[:1], gv[:1], gw[:1], dx, shape)
+
     def split():
         """Pass A's gather as the JAX package splits it at >= 2^24 cells:
         one launch per grid."""
@@ -561,26 +643,38 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
                                         gv[g:g + 1], gw[g:g + 1], dx, shape)
                           for g in range(2)])
 
+    checks, checks_b = [], []
+    for terms in SPLIT_TERMS:
+        label = _terms_label(terms)
+        checks.append(_equal(f"{label}n_grids=2 at particles",
+                             pp.gather_mac(*args_a, terms=terms),
+                             pp.gather_mac_ref(*args_a, terms=terms)))
+        checks_b.append(_equal(
+            f"{label}n_grids=1 at midpoints ({outside} outside the domain)",
+            pp.gather_mac_one_grid(*args_b, terms=terms),
+            pp.gather_mac_ref(*plain_b, terms=terms)))
     fused = pp.gather_mac(*args_a)
-    checks = [
-        compare("n_grids=2 at particles", fused,
-                pp.gather_mac_ref(*args_a), 1e-5, 1e-6),
-        compare(f"n_grids=1 at midpoints ({outside} outside the domain)",
-                pp.gather_mac(*args_b), pp.gather_mac_ref(*args_b),
-                1e-5, 1e-6),
+    library = grid_sample_mac(px, py, pz, gu, gv, gw, dx, shape)
+    checks += [
         # why pallas_split_gather changes nothing in the port (config.py)
         {"check": "two launches of one grid each equal the launch of two",
          "ok": bool(torch.equal(split(), fused)),
          "ms_two_launches": time_ms(split)},
-    ]
+        # the library call computes the same function with its own
+        # arithmetic (coordinates scaled to [-1, 1] and back): its
+        # difference is reported, not checked
+        {"check": "grid_sample (the library call) vs the kernel",
+         "library_max_abs_err": _max_abs(library() - fused), "ok": True}]
     del fused
-    # 3 components x (9 for the fractions + per grid 18 faces x (3 weight
-    # products + 2 to accumulate)), n_grids = 2
     records["gather_mac"] = (
         checks, _times(lambda: pp.gather_mac(*args_a),
-                       lambda: pp.gather_mac_ref(*args_a)),
-        bound(_nbytes(px, py, pz, stream.key, *gu, *gv, *gw) + 24 * n,
-              3 * (9 + 2 * 18 * 5) * n))
+                       lambda: pp.gather_mac_ref(*args_a), library),
+        gather_bound(args_a))
+    del library
+    records["gather_mac_one_grid"] = (
+        checks_b, _times(lambda: pp.gather_mac_one_grid(*args_b),
+                         lambda: pp.gather_mac_ref(*plain_b)),
+        gather_bound(plain_b))
 
     # K3 / K4 at every level of both solves' hierarchies
     records.update(_vcycle_records(cfg, dev, gen))
@@ -626,6 +720,20 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
         c5, c5f = _scatter_checks(f"{label}: ", k5, k5_plain, cfg, k5_counts)
         checks5 += c5
         checks5f += c5f
+        if full:
+            # the split products, unfolded
+            for terms in SPLIT_TERMS[1:]:
+                got = pp.scatter_p2g_table_stale(*args5, terms=terms)
+                want = pp.scatter_p2g_table_stale_ref(*ref5, slabs=ref_slabs,
+                                                      terms=terms)
+                tag = f"{label}: {_terms_label(terms)}"
+                checks5 += [
+                    compare(f"{tag}sums", got[0], want[0], 1e-5,
+                            1e-6 * _max_abs(want[0])),
+                    {"check": f"{tag}table and counts exact",
+                     "ok": all(bool(torch.equal(a, b))
+                               for a, b in zip(got[1:], want[1:]))}]
+                del got, want
         cov6 = pp.plan_midpoint_visits(key5, cfg.pallas_midpoint_budget,
                                        cfg.pallas_midpoint_factor).covered
         args6 = (key5, cov6, phi, shape)

@@ -164,17 +164,18 @@ def test_cli_takes_a_scene_with_the_gather_dtype(scene, tmp_path):
 def test_both_clis_take_a_scene_with_the_mg_backend_and_split_terms(
         scene, tmp_path, monkeypatch):
     """A scene file whose config block sets mg_backend "xla" and
-    pallas_split_terms 3 (JAX config fields the port refused before) bakes
-    the same two frames under both CLIs, held as
+    pallas_split_terms 2 (the JAX package's two-term split of the particle
+    kernels' products, which the port rounds the same way) bakes the same
+    two frames under both CLIs, held as
     test_both_clis_bake_the_same_two_frames holds them."""
     with open(scene) as f:
         spec = json.load(f)
-    spec["config"].update(mg_backend="xla", pallas_split_terms=3)
+    spec["config"].update(mg_backend="xla", pallas_split_terms=2)
     with open(scene, "w") as f:
         json.dump(spec, f)
     run = _bake_both(scene, tmp_path, monkeypatch)
     assert run.sim.cfg.mg_backend == "xla"
-    assert run.sim.cfg.pallas_split_terms == 3
+    assert run.sim.cfg.pallas_split_terms == 2
 
 
 def test_scene_file_yields_to_explicit_flags(scene):

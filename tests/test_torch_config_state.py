@@ -29,6 +29,7 @@ from flipviscosity3d_torch.io.trianglemesh import box_mesh
 from flipviscosity3d_torch.ops import extrapolate as tex
 from flipviscosity3d_torch.ops import levelset as tls
 from flipviscosity3d_torch.ops import mesh_sdf as tmesh
+from flipviscosity3d_torch.ops.pallas_particles import split_round
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -123,15 +124,24 @@ def test_config_takes_every_jax_mg_backend(backend):
 
 @pytest.mark.parametrize("terms", [1, 2, 3, 4])
 def test_config_takes_split_terms_from_three(terms):
-    """pallas_split_terms >= 3 is taken (no effect: exact f32 products, what
-    the JAX package computes at >= 3 off the TPU); 1 and 2 raise, naming
-    the JAX package's rounding that is not ported."""
+    """pallas_split_terms takes every int, as the JAX config does. 1 and 2
+    round what the particle kernels multiply to bf16 terms as the JAX
+    package's split products do (1: bf16(x); 2: bf16(x) plus bf16 of the
+    rest); 3 and up keep the exact f32 products, what the JAX package
+    computes at >= 3 off the TPU."""
     assert JaxConfig(pallas_split_terms=terms).pallas_split_terms == terms
+    cfg = SimConfig(pallas_split_terms=terms)
+    assert cfg.pallas_split_terms == terms
+    x = torch.tensor([1.0 + 2.0 ** -20, 0.1, -3.3, 0.0])
+    rounded = split_round(x, cfg.pallas_split_terms)
     if terms >= 3:
-        assert SimConfig(pallas_split_terms=terms).pallas_split_terms == terms
+        assert torch.equal(rounded, x)
     else:
-        with pytest.raises(ValueError, match="rounding is not ported"):
-            SimConfig(pallas_split_terms=terms)
+        one = x.to(torch.bfloat16).float()
+        want = one if terms == 1 else one + (x - one).to(
+            torch.bfloat16).float()
+        assert torch.equal(rounded, want)
+        assert not torch.equal(rounded, x)
 
 
 def test_fluid_simulation_defaults_to_the_card():

@@ -50,33 +50,113 @@ def test_kernels_match_plain_versions(cuda):
         "scatter_p2g_table_stale", "gather_rows8",
         "scatter_p2g_table_folded", "scatter_p2g_table_stale_folded",
         "gather_rows", "detile", "scatter_revisit", "gather_revisit",
-        "tile_scatter", "tile_gather"]
+        "tile_scatter", "tile_gather", "gather_mac_one_grid"]
     for r in records:
         assert r["ok"], r
         assert r["bound_by"] in ("bytes", "operations")
         assert 0 < r["bound_ms"] and 0 < r["ms"]
 
 
+def _edge_stream(gen, dev):
+    """Positions on a 32^3 grid built to hit K1's edges: a cell of 40
+    particles (more than a warp's batch), a tile of 5,000 (more than 4,096),
+    tiles left empty, and 20,000 spread over the lower half in y -> (pos,
+    shape, dx)."""
+    shape, dx = (32, 32, 32), 1.0 / 32
+    lo = torch.tensor([0.0, 0.0, 0.0], device=dev)
+    hi = torch.tensor([1.0, 0.5, 1.0], device=dev)
+    spread = lo + (hi - lo) * torch.rand((20_000, 3), generator=gen,
+                                         device=dev)
+    one_cell = (torch.tensor([9.0, 3.0, 17.0], device=dev) + torch.rand(
+        (40, 3), generator=gen, device=dev)) * dx
+    one_tile = (torch.tensor([16.0, 8.0, 0.0], device=dev) + 8.0 * torch.rand(
+        (5_000, 3), generator=gen, device=dev)) * dx
+    return torch.cat([spread, one_cell, one_tile]), shape, dx
+
+
+@pytest.mark.gpu
+def test_scatter_edge_streams_match_plain_version(cuda):
+    """K1 on _edge_stream against scatter_p2g_table_ref at caps 1 and 32,
+    both sums layouts and pallas_split_terms 3, 1 and 2: sums within rtol
+    1e-5 / atol 1e-6 of max|sums|, slot tables torch.equal; the stream holds
+    empty tiles, a cell past 32 particles and a tile past 4,096."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    pos, shape, dx = _edge_stream(gen, cuda)
+    vel = torch.randn(pos.shape, generator=gen, device=cuda)
+    stream = pp.tiled_sort(pos, vel, dx, shape)
+    per_tile = torch.bincount(stream.key // pp.W, minlength=64)
+    assert int((per_tile == 0).sum()) > 0 and int(per_tile.max()) > 4096
+    assert int(stream.rank.max()) >= 39
+    for cap in (1, 32):
+        args = (stream.pos, stream.vel, stream.key, stream.rank, shape, dx,
+                cap)
+        for fold in (False, True):
+            for terms in (3, 1, 2):
+                got = pp.scatter_p2g_table(*args, fold_sums=fold, terms=terms)
+                want = pp.scatter_p2g_table_ref(*args, fold_sums=fold,
+                                                terms=terms)
+                what = (cap, fold, terms)
+                torch.testing.assert_close(
+                    got[0], want[0], rtol=1e-5,
+                    atol=1e-6 * float(want[0].abs().max()), msg=str(what))
+                assert torch.equal(got[1], want[1]), what
+
+
+@pytest.mark.gpu
+def test_gather_mac_orders_match_plain_version(cuda):
+    """K2 torch.equal to gather_mac_ref at pallas_split_terms 3, 1 and 2,
+    with two grids and one, on keys sorted, shuffled, and of midpoints of
+    which some lie outside the domain."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    pos, shape, dx = _edge_stream(gen, cuda)
+    cfg = SimConfig(isize=32, jsize=32, ksize=32, dx=dx)
+    faces = (cfg.u_shape, cfg.v_shape, cfg.w_shape)
+    grids = [[torch.randn(fs, generator=gen, device=cuda) for fs in faces]
+             for _ in range(2)]
+    key = pp.key_of_position(pos, dx, shape)
+    key_s, (pos_s,) = pp.sort_by_key(key, (pos,))
+    shuffle = torch.randperm(pos.shape[0], generator=gen, device=cuda)
+    mx, my, mz, key_m, outside = smoke.midpoints(pos_s, cfg, gen)
+    assert outside > 0
+    orders = {"sorted": (*pos_s.unbind(1), key_s),
+              "shuffled": (*pos_s[shuffle].unbind(1), key_s[shuffle]),
+              "midpoints": (mx, my, mz, key_m)}
+    for label, (px, py, pz, keys) in orders.items():
+        px, py, pz = (a.contiguous() for a in (px, py, pz))
+        for n_grids in (1, 2):
+            gs = [[g[c] for g in grids[:n_grids]] for c in range(3)]
+            for terms in (3, 1, 2):
+                got = pp.gather_mac(px, py, pz, keys, *gs, dx, shape,
+                                    terms=terms)
+                want = pp.gather_mac_ref(px, py, pz, keys, *gs, dx, shape,
+                                         terms=terms)
+                assert torch.equal(got, want), (label, n_grids, terms)
+
+
 @pytest.mark.gpu
 def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
-    """The three main paths at 32^3 launch the six unfolded kernels; the
-    CLI's paths with the large-grid threshold lowered to 32^3
-    launch the two folded ones; the hardware-check path launches the four
-    kernels of the column path."""
+    """The three main paths at 32^3 launch the six unfolded kernels and K2
+    with one grid (pass B); the CLI's paths with the large-grid threshold
+    lowered to 32^3 launch the two folded ones; the hardware-check path
+    launches the four kernels of the column path."""
     launched = set()
     for _, dt, lift, overrides in smoke.MAIN_PATHS:
         result = smoke.run_main_path(cuda, 32, 1, dt=dt, lift=lift,
                                      **overrides)
         assert result["failures"] == []
         launched |= {k for k, c in result["launches"].items() if c > 0}
-    assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:6]}
+    assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:6]} | {
+        "gather_mac_one_grid"}
     monkeypatch.setattr(pp, "FOLD_CELLS", 32 ** 3)
     for name, dt, lift, overrides in smoke.MAIN_PATHS[:2]:
         result = smoke.run_scene_path(cuda, tmp_path, name, 32, 1, dt=dt,
                                       lift=lift, **overrides)
         assert result["failures"] == []
         launched |= {k for k, c in result["launches"].items() if c > 0}
-    assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:8]}
+    assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:8]} | {
+        "gather_mac_one_grid"}
     monkeypatch.undo()
     result = smoke.run_hw_check(cuda, 32, 65_536, 64, 30_000,
                                 log=lambda line: None)

@@ -273,7 +273,7 @@ def test_large_scene_switches_match_jax(scene, monkeypatch):
     real = tpp.scatter_p2g_table_ref
     monkeypatch.setattr(
         tpp, "scatter_p2g_table_ref",
-        lambda *a: folded.append(a[-1]) or real(*a))
+        lambda *a, **kw: folded.append(a[-1]) or real(*a, **kw))
     large = tstep.step(state, DT, auto)
     assert folded == [True]
     _assert_substep_matches(*large, jnew, jd)
@@ -289,12 +289,13 @@ def test_scene_path_reports_the_large_scene_kernels(folds_at_16, tmp_path):
     run = result.pop("run")
     assert result["failures"] == []
     assert result["path_kernels"] == [
-        "scatter_p2g_table_folded", "gather_mac", "mg_down", "mg_up"]
+        "scatter_p2g_table_folded", "gather_mac", "gather_mac_one_grid",
+        "mg_down", "mg_up"]
     assert set(result["launches"].values()) == {0}
     stale = dataclasses.replace(run.sim.cfg, **smoke.STALE_PATH)
     assert smoke.path_kernels(stale) == [
-        "scatter_p2g_table_stale_folded", "gather_mac", "mg_down", "mg_up",
-        "gather_rows8"]
+        "scatter_p2g_table_stale_folded", "gather_mac", "gather_mac_one_grid",
+        "mg_down", "mg_up", "gather_rows8"]
 
 
 def _resting_pool_frames(res, frames, particle_engine="pallas",

@@ -5,7 +5,20 @@ gather_mac_ref) are held against JAX's Pallas kernels in interpret mode,
 which on the CPU run one exact f32 dot per one-hot contraction
 (pallas_particles.py:111-115): tolerances cover summation order only.
 Keys, ranks and decodes are integers and must match exactly.
+
+At pallas_split_terms 1 and 2 the JAX kernels round their values to bf16
+terms, which turns a difference of one f32 ulp in a value into one of a
+bf16 term's ulp. XLA's CPU code contracts multiply-adds into fused
+multiply-adds where the processor has them, and so moves about a fifth of
+the Wyvill weights by an ulp from the unfused arithmetic of the kernels'
+expressions (the port's and, on the TPU, JAX's). The split-terms test
+therefore takes JAX's results from a second process whose XLA may not use
+FMA instructions (--xla_cpu_max_isa=AVX).
 """
+
+import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -152,3 +165,140 @@ def test_solid_pushback_matches_jax():
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
                                    atol=1e-6)
     assert any(np.abs(np.asarray(j)).max() > 0 for j in jd)
+
+
+def jax_split_outputs(terms: int, out: str) -> None:
+    """JAX's interpret-mode kernels at `terms` on _particles(): the scatter
+    of the sorted stream (cap 4), the scatter with in-kernel ranks over the
+    stream as it is (plan_pass_a's plan, every particle covered), and the
+    MAC gather of 1 and 2 grids at positions partly outside the domain,
+    sorted by key -> an npz at `out`."""
+    pos, vel = _particles()
+    js = jpp.tiled_sort(jnp.asarray(pos), jnp.asarray(vel), DX, SHAPE)
+    res = dict(zip(("sorted_sums", "sorted_table"), jpp.scatter_p2g_table(
+        js.plan.tabs, js.plan.lockeys, js.payload, SHAPE, DX, 4,
+        terms=terms)))
+    key = jpp.key_of_position(jnp.asarray(pos), DX, SHAPE)
+    gplan, splan = jpp.plan_pass_a(key, pos.shape[0], SHAPE, 8, 3.0)
+    assert bool(jnp.all(gplan.covered))
+    res.update(zip(("stale_sums", "stale_table"), jpp.scatter_p2g_table(
+        splan.tabs, splan.lockeys,
+        jpp.stale_payload(jnp.asarray(pos), jnp.asarray(vel), key, SHAPE),
+        SHAPE, DX, 4, terms=terms, inkernel_rank=True)))
+    gpos, grids = _gather_inputs()
+    key = jpp.key_of_position(jnp.asarray(gpos), DX, SHAPE)
+    key_s, (bx, by, bz), plan = jpp.sort_by_key(
+        key, tuple(jnp.asarray(gpos[:, a]) for a in range(3)), SHAPE)
+    pay = jpp.gather_payload(bx, by, bz, key_s, SHAPE)
+    for n_grids in (1, 2):
+        cols = jpp.build_mac_columns(
+            *([jnp.asarray(g[c]) for g in grids[:n_grids]]
+              for c in range(3)), SHAPE)
+        res[f"gather{n_grids}"] = jpp.gather_mac(
+            plan.tabs, plan.lockeys, pay, cols, gpos.shape[0], DX, n_grids,
+            terms=terms)[:3 * n_grids]
+    res["gather_keys"] = key_s
+    res["gather_pos"] = jnp.stack([bx, by, bz])
+    np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
+
+
+def _gather_inputs():
+    """Positions partly outside the domain and two grids per component."""
+    pos, _ = _particles(spread=1.3)
+    rng = np.random.default_rng(4)
+    return pos, [[rng.normal(size=fs).astype(np.float32) for fs in FACES]
+                 for _ in range(2)]
+
+
+def _port_split_outputs(terms):
+    """The port's plain versions on the inputs of jax_split_outputs."""
+    pos, vel = _particles()
+    tp, tv = torch.from_numpy(pos), torch.from_numpy(vel)
+    ts = tpp.tiled_sort(tp, tv, DX, SHAPE)
+    res = dict(zip(("sorted_sums", "sorted_table"), tpp.scatter_p2g_table(
+        ts.pos, ts.vel, ts.key, ts.rank, SHAPE, DX, 4, terms=terms)))
+    key = tpp.key_of_position(tp, DX, SHAPE)
+    plan = tpp.plan_pass_a(key, SHAPE, 8, 3.0)
+    res.update(zip(("stale_sums", "stale_table"),
+                   tpp.scatter_p2g_table_stale(tp, tv, key, plan, SHAPE, DX,
+                                               4, terms=terms)[:2]))
+    _, grids = _gather_inputs()
+    return res, grids
+
+
+@pytest.mark.parametrize("terms", [1, 2])
+def test_split_terms_round_like_jax(terms, tmp_path):
+    """At pallas_split_terms 1 and 2 the port's plain scatter (sorted, and
+    with in-kernel ranks) and plain gather (1 and 2 grids) against JAX's
+    interpret-mode kernels at the same terms (module docstring: from a
+    process without FMA): sums and samples within rtol 1e-5 (sums atol
+    1e-6 * max|sums|, samples atol 1e-6), tables exact. The rounding shows:
+    for every output, the port at `terms` differs from the port's exact
+    products (terms 3) by at least 10 times its difference from JAX at
+    `terms`."""
+    out = str(tmp_path / "jax.npz")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        os.environ.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX").strip())
+    code = (f"import sys; sys.path[:0] = [{here!r}, {os.path.dirname(here)!r}]"
+            f"; import test_torch_particles as t; "
+            f"t.jax_split_outputs({terms}, {out!r})")
+    run = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    with np.load(out) as data:
+        jax_out = dict(data)
+    port, grids = _port_split_outputs(terms)
+    exact, _ = _port_split_outputs(3)
+    keys = torch.from_numpy(jax_out["gather_keys"])
+    gpos = [torch.from_numpy(a.copy()) for a in jax_out["gather_pos"]]
+    for n_grids in (1, 2):
+        args = (*gpos, keys, *([torch.from_numpy(g[c]) for g in
+                                grids[:n_grids]] for c in range(3)), DX,
+                SHAPE)
+        port[f"gather{n_grids}"] = tpp.gather_mac(*args, terms=terms)
+        exact[f"gather{n_grids}"] = tpp.gather_mac(*args)
+    for name, want in jax_out.items():
+        if name.startswith("gather_"):
+            continue
+        got = port[name].numpy()
+        if name.endswith("table"):
+            want = want.reshape(*SHAPE, -1)[..., :16]
+            np.testing.assert_array_equal(got.reshape(*SHAPE, 16), want,
+                                          err_msg=name)
+            continue
+        atol = 1e-6 * (np.abs(want).max() if "sums" in name else 1.0)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol,
+                                   err_msg=name)
+        off_jax = np.abs(got - want).max()
+        rounding = np.abs(got - exact[name].numpy()).max()
+        assert rounding >= 10.0 * off_jax, (name, rounding, off_jax)
+        assert rounding > 0.0, name
+
+
+def test_particle_kernels_script_runs_on_cpu_without_jax():
+    """scripts/particle_kernels.py as its command line runs it, here with
+    --device cpu at 16^3 (plain versions) and this checkout as --root too
+    (imported a second time under another name), JAX made unimportable: one
+    line per package and kernel, then checks that all hold, exit 0."""
+    import json
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(repo, "flipviscosity3d_torch", "scripts",
+                          "particle_kernels.py")
+    code = ("import sys, runpy; sys.modules['jax'] = None; "
+            f"sys.argv = [{script!r}, '--device', 'cpu', '--res', '16', "
+            f"'--root', {repo!r}]; "
+            f"runpy.run_path({script!r}, run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=repo)
+    assert out.returncode == 0, out.stderr
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()]
+    kernels = ["scatter_p2g_table", "scatter_p2g_table_folded", "gather_mac",
+               "gather_mac_one_grid"]
+    assert [ln["kernel"] for ln in lines[:-1]] == kernels * 2
+    assert all(len(ln["ms"]) == 2 and ln["bound_ms"] > 0
+               for ln in lines[:-1])
+    checks = lines[-1]["checks"]
+    assert lines[-1]["ok"] and len(checks) == 8
+    assert all(c["ok"] for c in checks)

@@ -149,6 +149,28 @@ def test_substep_and_two_frames_match_jax(scene):
     _assert_frames_match(*_advance_both(arrays, cfg, JAX_CFG, 0.01, 2))
 
 
+def test_split_terms_two_substep_and_frame_match_jax(scene):
+    """pallas_split_terms=2 (the JAX package's two-term split of its
+    scatter and gather products, which the port rounds the same way): one
+    substep from the moving state (_assert_substep_matches) and one frame
+    of advance from rest (_assert_frames_match), at the tolerances of the
+    exact-product test above. The rounding acts: the port's substep at
+    terms 3 ends elsewhere."""
+    base, arrays = scene
+    jcfg = dataclasses.replace(JAX_CFG, pallas_split_terms=2)
+    cfg = _port_cfg(base, jcfg)
+    assert cfg.pallas_split_terms == 2
+    moving = _moving(arrays)
+    jnew, jd = _jax_substep(moving, 0.01, jcfg)
+    tnew, td = tstep.step(state_from_numpy(moving, "cpu"), DT, cfg)
+    _assert_substep_matches(tnew, td, jnew, jd)
+    exact, _ = tstep.step(state_from_numpy(moving, "cpu"), DT,
+                          _port_cfg(base, JAX_CFG))
+    assert not torch.equal(exact.u, tnew.u)
+    assert not torch.equal(exact.vel, tnew.vel)
+    _assert_frames_match(*_advance_both(arrays, cfg, jcfg, 0.01, 1))
+
+
 def test_pass_b_sort_keeps_jax_order_with_overflowing_table(scene):
     """Pass B "sort" re-sorts the particles by midpoint key, as JAX does:
     with an SDF capacity of 2 the slot table overflows, so the next pass A
@@ -240,13 +262,15 @@ def test_main_path_runs_on_cpu():
     assert result["failures"] == []
     assert result["particles"] > 0 and result["substeps"] >= 2
     assert result["launches"] == {
-        "scatter_p2g_table": 0, "gather_mac": 0, "mg_down": 0, "mg_up": 0,
+        "scatter_p2g_table": 0, "gather_mac": 0, "gather_mac_one_grid": 0,
+        "mg_down": 0, "mg_up": 0,
         "scatter_p2g_table_stale": 0, "gather_rows8": 0,
         "scatter_p2g_table_folded": 0, "scatter_p2g_table_stale_folded": 0,
         "gather_rows": 0, "detile": 0, "scatter_revisit": 0,
         "gather_revisit": 0, "tile_scatter": 0, "tile_gather": 0}
     assert result["path_kernels"] == [
-        "scatter_p2g_table", "gather_mac", "mg_down", "mg_up"]
+        "scatter_p2g_table", "gather_mac", "gather_mac_one_grid", "mg_down",
+        "mg_up"]
     assert all(f["viscosity_iterations"] > 0 for f in result["frames"])
     # the midpoint plan's demand, per chunk: at least one visit
     assert all(f["plan_demand"] >= 1 for f in result["frames"])
@@ -266,8 +290,8 @@ def test_stale_main_path_runs_on_cpu():
     assert result["failures"] == []
     assert result["substeps"] > 2 and result["stale_substeps"] >= 1
     assert result["path_kernels"] == [
-        "scatter_p2g_table_stale", "gather_mac", "mg_down", "mg_up",
-        "gather_rows8"]
+        "scatter_p2g_table_stale", "gather_mac", "gather_mac_one_grid",
+        "mg_down", "mg_up", "gather_rows8"]
     assert all(f["plan_demand"] >= 1 for f in result["frames"])
 
 
@@ -282,6 +306,7 @@ def test_bench_sort_main_path_runs_on_cpu():
     assert result["failures"] == []
     assert result["substeps"] >= 2 and result["stale_substeps"] == 0
     assert result["path_kernels"] == [
-        "scatter_p2g_table", "gather_mac", "mg_down", "mg_up"]
+        "scatter_p2g_table", "gather_mac", "gather_mac_one_grid", "mg_down",
+        "mg_up"]
     assert all(f["plan_demand"] == 0 and f["uncovered_pass_b"] == 0
                for f in result["frames"])
