@@ -1,6 +1,6 @@
 // The search of a sorted key array shared by the kernels that give a warp
-// cells of a tile-key-sorted stream (p2g_scatter.cu, revisit.cu): all 32
-// lanes of the warp probe at once.
+// cells of a tile-key-sorted stream (p2g_scatter.cu, revisit.cu,
+// tile_proto.cu): all 32 lanes of the warp probe at once.
 
 #pragma once
 
@@ -14,9 +14,10 @@ namespace flip3d {
 // round the 32 lanes probe 32 points that cut the range into 33 parts and
 // one ballot keeps the part that holds the answer: about log33(hi - lo) + 1
 // dependent loads, 5 for 35M keys, where a binary search by one lane needs
-// 25.
-__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ key,
-                                                int lo, int hi, int v) {
+// 25. T is int, or float for keys held as floats (exact below 2^24).
+template <typename T>
+__device__ __forceinline__ int warp_lower_bound(const T* __restrict__ key,
+                                                int lo, int hi, T v) {
   const int lane = threadIdx.x & 31;
   while (hi - lo > 32) {
     const int64_t len = hi - lo;

@@ -27,13 +27,19 @@
 // against a 0.14 GB payload); K12 writes a 128-float row per lane (2.28 GB
 // at 128^3) from 0.29 GB of distinct cell rows.
 //
-// K11: the sort makes each cell's particles one contiguous run, so one warp
-// owns one cell, as in p2g_scatter.cu: lane 0 finds the run inside its
-// tile's [starts[b], starts[b+1]) by two binary searches of the float keys
-// (none for an empty tile), the warp walks it in stream order with each
-// lane owning two of the 54 (component, offset) pairs and four table
-// lanes, and writes the cell's whole row. No atomics: every sum runs in
-// stream order from zero, the same in every call.
+// K11: the sort makes each cell's particles one contiguous run, so K11 is
+// K1's structure (p2g_scatter.cu): a warp owns 32 consecutive cells of a
+// tile, finds their whole run inside the tile's [starts[b], starts[b+1])
+// by two 32-lane searches of the float keys (warp_lower_bound), and sums it
+// by the walk of p2g_cells.cuh (32 particles a batch, the next in flight;
+// lane l on faces l and l + 32 in registers; a cell closed where the key
+// changes). A particle of rank r < cap writes its own slot, lanes
+// 108 + 4r .. 108 + 4r + 3, as one float4 when it is loaded; a closed
+// cell's 108 sums go through the warp's row of shared memory and out as 27
+// float4, its empty slots as float4 zeros, and an empty cell's whole row as
+// float4 zeros. No atomics: every sum runs in stream order from zero, as
+// the warp-per-cell kernel this replaces ran it, so the rows are bit for
+// bit the same and do not vary from call to call.
 //
 // K12: one warp per output row copies F contiguous floats, as float4 where
 // F is a multiple of 4. A copy, so the result is exact.
@@ -41,123 +47,110 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "p2g_cells.cuh"
+#include "sorted_runs.cuh"
+
 namespace {
 
+using flip3d::LaneFaces;
+using flip3d::Particle;
+using flip3d::sum_cells;
+using flip3d::warp_lower_bound;
+
 constexpr int kW = 512;      // cells per 8x8x8 tile
-constexpr int kPairs = 54;   // (component, face offset) pairs
-constexpr int kSums = 2 * kPairs;
-constexpr int kWarps = 8;    // warps (cells or rows) per block
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSums = 108;   // 54 weights + 54 weight * velocity
+constexpr int kWarps = 8;    // warps (32 cells or one row) per block
 
-// First index in key[lo, hi) whose value is not below v.
-__device__ __forceinline__ int lower_bound_f(const float* __restrict__ key,
-                                             int lo, int hi, float v) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (key[mid] < v)
-      lo = mid + 1;
-    else
-      hi = mid;
+// The payload's rows as sum_cells reads them: particle p of the run is lane
+// p of [px, py, pz, vx, vy, vz, key, rank].
+struct PayloadRows {
+  const float* __restrict__ payload;
+  int64_t lanes;
+  int end, t0;
+  float x = 0.f, y = 0.f, z = 0.f, vx = 0.f, vy = 0.f, vz = 0.f, k = 0.f,
+        r = 0.f;
+
+  __device__ __forceinline__ void load(int p) {
+    if (p < end) {
+      x = payload[p], y = payload[lanes + p], z = payload[2 * lanes + p];
+      vx = payload[3 * lanes + p], vy = payload[4 * lanes + p];
+      vz = payload[5 * lanes + p];
+      k = payload[6 * lanes + p], r = payload[7 * lanes + p];
+    }
   }
-  return lo;
-}
+  __device__ __forceinline__ Particle next(int) const {
+    return Particle{x, y, z, vx, vy, vz, (int)k - t0, (int)r};
+  }
+};
 
-__global__ void tile_scatter_kernel(const int* __restrict__ starts,
-                                    const float* __restrict__ payload,
-                                    int64_t lanes, int n_blocks, int nt1,
-                                    int nt2, float dx, float r2, float c1,
-                                    float c2, float c3, int cap,
-                                    float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t cell = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (cell >= (int64_t)n_blocks * kW) return;
-  const int n_cols = kSums + 4 * cap;
-  const int b = (int)(cell / kW);
-  const int l = (int)(cell % kW);
+// K11's output: cell t0 + i's row of 108 + 4 cap floats, written as float4;
+// `row` is the warp's 108 floats of shared memory.
+struct ProtoRows {
+  float* __restrict__ out;
+  float* __restrict__ row;
+  int64_t t0;
+  int n4, cap;  // float4 per row, slots
+
+  __device__ __forceinline__ float4* row4(int i) const {
+    return reinterpret_cast<float4*>(out + (t0 + i) * (4 * (int64_t)n4));
+  }
+  // a particle's own values, as the one-hot table sum of the replaced
+  // kernel (0 + x) holds them
+  __device__ __forceinline__ void slot(const Particle& pt) const {
+    row4(pt.i)[kSums / 4 + pt.r] =
+        make_float4(0.f + pt.x, 0.f + pt.y, 0.f + pt.z, 1.0f);
+  }
+  __device__ __forceinline__ void close(int i, int count,
+                                        const LaneFaces<3>& lf) const {
+    const int lane = threadIdx.x & 31;
+    row[lane] = lf.w0.total();
+    row[54 + lane] = lf.wv0.total();
+    if (lane + 32 < 54) {
+      row[lane + 32] = lf.w1.total();
+      row[54 + lane + 32] = lf.wv1.total();
+    }
+    __syncwarp();
+    float4* dst = row4(i);
+    if (lane < kSums / 4) dst[lane] = reinterpret_cast<const float4*>(row)[lane];
+    if (lane >= count && lane < cap)
+      dst[kSums / 4 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncwarp();
+  }
+  __device__ __forceinline__ void zero(int i) const {
+    float4* dst = row4(i);
+    for (int e = threadIdx.x & 31; e < n4; e += 32)
+      dst[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+};
+
+__global__ void __launch_bounds__(kWarps * 32, 4)
+    tile_scatter_kernel(const int* __restrict__ starts,
+                        const float* __restrict__ payload, int64_t lanes,
+                        int n_blocks, int nt1, int nt2, float dx, float r2,
+                        float c1, float c2, float c3, int cap,
+                        float* __restrict__ out) {
+  __shared__ float4 s_batch[kWarps][32][2];
+  __shared__ __align__(16) float s_row[kWarps][kSums];
+  const int warp = threadIdx.x >> 5;
+  const int64_t first = ((int64_t)blockIdx.x * kWarps + warp) * 32;
+  if (first >= (int64_t)n_blocks * kW) return;
+  const int t0 = (int)first;
+  const int b = t0 / kW, l0 = t0 % kW;
   const float* __restrict__ key = payload + 6 * lanes;
-  const float* __restrict__ rank = payload + 7 * lanes;
-
-  int start = 0, end = 0;
-  const int s0 = starts[b], s1 = starts[b + 1];
-  if (lane == 0 && s0 < s1) {
-    start = lower_bound_f(key, s0, s1, (float)cell);
-    end = lower_bound_f(key, start, s1, (float)(cell + 1));
+  int start = starts[b], end = starts[b + 1];
+  if (start < end) {  // the same in every lane
+    start = warp_lower_bound(key, start, end, (float)t0);
+    end = warp_lower_bound(key, start, end, (float)(t0 + 32));
   }
-  start = __shfl_sync(kFull, start, 0);
-  end = __shfl_sync(kFull, end, 0);
-
-  // the cell's integer coordinates, as floats
   const int ti = b / (nt1 * nt2), tj = (b / nt2) % nt1, tk = b % nt2;
-  const float li = (float)(ti * 8 + l / 64);
-  const float lj = (float)(tj * 8 + (l / 8) % 8);
-  const float lk = (float)(tk * 8 + l % 8);
+  const int gi = ti * 8 + l0 / 64;
+  const int gj0 = tj * 8 + (l0 / 8) % 8;
+  const int gk0 = tk * 8;
 
-  // this lane's two pairs: the face's position and the particle shift
-  float gx[2], gy[2], gz[2], sx[2], sy[2], sz[2];
-  int comp[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int q = lane + 32 * s;
-    const int c = q / 18, oidx = q % 18;
-    const float ox = (float)(oidx / 9);
-    const float oy = (float)((oidx / 3) % 3 - 1);
-    const float oz = (float)(oidx % 3 - 1);
-    const float ax = c == 0 ? ox : oy;
-    const float ay = c == 0 ? oy : (c == 1 ? ox : oz);
-    const float az = c == 2 ? ox : oz;
-    comp[s] = q < kPairs ? c : -1;
-    gx[s] = (li + ax) * dx;
-    gy[s] = (lj + ay) * dx;
-    gz[s] = (lk + az) * dx;
-    sx[s] = (c == 0 ? 0.0f : 0.5f) * dx;
-    sy[s] = (c == 1 ? 0.0f : 0.5f) * dx;
-    sz[s] = (c == 2 ? 0.0f : 0.5f) * dx;
-  }
-
-  float wsum[2] = {0.f, 0.f}, wvsum[2] = {0.f, 0.f};
-  float tab[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int p = start; p < end; ++p) {
-    const float px = payload[p], py = payload[lanes + p];
-    const float pz = payload[2 * lanes + p];
-    const float vx = payload[3 * lanes + p], vy = payload[4 * lanes + p];
-    const float vz = payload[5 * lanes + p];
-    const int r = (int)rank[p];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      if (comp[s] < 0) continue;
-      const float fx = gx[s] - (px - sx[s]);
-      const float fy = gy[s] - (py - sy[s]);
-      const float fz = gz[s] - (pz - sz[s]);
-      const float d2 = fx * fx + fy * fy + fz * fz;
-      float w = 1.0f - c1 * d2 * d2 * d2 + c2 * d2 * d2 - c3 * d2;
-      w = d2 < r2 ? w : 0.0f;
-      const float v = comp[s] == 0 ? vx : (comp[s] == 1 ? vy : vz);
-      wsum[s] = wsum[s] + w;
-      wvsum[s] = wvsum[s] + w * v;
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int j = lane + 32 * t;
-      if (j < 4 * cap && j / 4 == r) {
-        const int f = j % 4;
-        tab[t] = tab[t] + (f == 0 ? px : (f == 1 ? py : (f == 2 ? pz : 1.0f)));
-      }
-    }
-  }
-
-  float* __restrict__ row = out + cell * n_cols;
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    if (comp[s] < 0) continue;
-    const int q = lane + 32 * s;
-    row[q] = wsum[s];
-    row[kPairs + q] = wvsum[s];
-  }
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int j = lane + 32 * t;
-    if (j < 4 * cap) row[kSums + j] = tab[t];
-  }
+  PayloadRows src{payload, lanes, end, t0};
+  const ProtoRows rows{out, s_row[warp], t0, kSums / 4 + cap, cap};
+  sum_cells<3>(src, rows, s_batch[warp], start, end, gi, gj0, gk0, cap, dx,
+               c1, c2, c3, r2);
 }
 
 // V: float or float4; f is F in units of V.
@@ -187,8 +180,9 @@ extern "C" int flip3d_tile_scatter(const int* starts, const float* payload,
                                    float c2, float c3, int cap, float* out,
                                    void* stream) {
   if (n_blocks == 0) return 0;
-  const int64_t cells = (int64_t)n_blocks * kW;
-  const unsigned blocks = (unsigned)((cells + kWarps - 1) / kWarps);
+  const int64_t cells = (int64_t)n_blocks * kW;  // 32 a warp
+  const unsigned blocks =
+      (unsigned)((cells + kWarps * 32 - 1) / (kWarps * 32));
   tile_scatter_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
       starts, payload, lanes, n_blocks, nt1, nt2, dx, r2, c1, c2, c3, cap,
       out);

@@ -457,16 +457,48 @@ def table_rank_overflow(counts, cap):
     return torch.clamp(counts - cap, min=0).sum()
 
 
+def stale_ranks(key, covered):
+    """The rank of each covered particle in stream order among the covered
+    particles of its cell, for key[covered] (int32): by a stable sort of
+    their keys."""
+    key_s, perm = torch.sort(key[covered], stable=True)
+    rank = torch.empty_like(key_s, dtype=torch.int32)
+    rank[perm] = run_ranks(key_s, torch.int32)
+    return rank
+
+
+def stale_order_ref(key, plan: ScatterPlan, grid_shape):
+    """Plain version of the order half of scatter_p2g_table_stale's kernel:
+    the particles that take part (covered, their chunk listed for their
+    tile by the plan's CSR) in the order of a sorted stream, by (key, stream
+    position) -> (order (m,) int64 stream indices, tile_off (n_tiles + 1,)
+    int64 the start of each tile's run in order). Particle order[p]'s rank
+    in its cell is p less the first p of its key."""
+    n = key.shape[0]
+    n_tiles = (grid_shape[0] * grid_shape[1] * grid_shape[2]) // W
+    dev = key.device
+    per_tile = plan.tile_ptr[1:].long() - plan.tile_ptr[:-1].long()
+    listed = (plan.tile_chunks.long() * n_tiles + torch.repeat_interleave(
+        torch.arange(n_tiles, device=dev), per_tile))
+    q = torch.arange(n, device=dev)
+    mine = (q // C) * n_tiles + key.long() // W
+    part = torch.nonzero(plan.covered & torch.isin(mine, listed))[:, 0]
+    _, perm = torch.sort(key[part], stable=True)
+    order = part[perm]
+    counts = torch.bincount(key[order].long() // W, minlength=n_tiles)
+    tile_off = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                          torch.cumsum(counts, 0)])
+    return order, tile_off
+
+
 def scatter_p2g_table_stale_ref(pos, vel, key, covered, grid_shape, dx,
                                 cap, fold_sums=None, slabs: int = 1,
                                 terms: int = 3):
     """Plain version of scatter_p2g_table_stale: the covered particles' ranks
-    by a stable sort of their keys, then scatter_p2g_table_ref (in `slabs`
-    runs of particles, at `terms`)."""
+    (stale_ranks), then scatter_p2g_table_ref (in `slabs` runs of particles,
+    at `terms`)."""
     key_c = key[covered]
-    key_s, perm = torch.sort(key_c, stable=True)
-    rank = torch.empty_like(key_s, dtype=torch.int32)
-    rank[perm] = run_ranks(key_s, torch.int32)
+    rank = stale_ranks(key, covered)
     sums, table = scatter_p2g_table_ref(pos[covered], vel[covered], key_c,
                                         rank, grid_shape, dx, cap, fold_sums,
                                         slabs, terms)
@@ -478,7 +510,7 @@ def scatter_p2g_table_stale_ref(pos, vel, key, covered, grid_shape, dx,
 
 
 _STALE_ARGS = (_P,) * 4 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_F,) * 5 + (
-    _I,) * 2 + (_P,) * 3 + (_P,)
+    _I,) * 2 + (_P,) * 5 + (_P,)
 
 
 def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
@@ -490,8 +522,11 @@ def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
     particles of its cell; counts holds every covered particle of the cell,
     ranks >= cap included. The inputs are the stream as it is (the TPU's
     stale_payload rows have no counterpart: the kernel decodes the keys
-    itself). Folded launches count as scatter_p2g_table_stale_folded.
-    `terms` rounds as scatter_p2g_table's does."""
+    itself). Folded launches count as scatter_p2g_table_stale_folded, and
+    a launch counts once, although the kernel runs in two halves (an order
+    of the covered particles, stale_order_ref's, then K1's walk over it),
+    with one int32 a particle and n_tiles + 1 of scratch. `terms` rounds as
+    scatter_p2g_table's does."""
     check_grid(grid_shape)
     if fold_sums is None:
         fold_sums = large_grid(grid_shape)
@@ -516,6 +551,8 @@ def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
     table = torch.empty((ni, nj, nk, cap, 4), dtype=torch.float32,
                         device=dev)
     counts = torch.empty((ni, nj, nk), dtype=torch.int32, device=dev)
+    order = torch.empty((n,), dtype=torch.int32, device=dev)
+    tile_off = torch.empty((n_tiles + 1,), dtype=torch.int32, device=dev)
     c1, c2, c3, r2 = wyvill_constants(dx)
     _build.launch(
         "flip3d_p2g_scatter_stale", _STALE_ARGS,
@@ -523,7 +560,7 @@ def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
         plan.covered.data_ptr(), n, plan.tile_ptr.data_ptr(),
         plan.tile_chunks.data_ptr(), ni, nj, nk, cap, _f32(dx), c1, c2, c3,
         r2, stride, _kernel_terms(terms), sums.data_ptr(), table.data_ptr(),
-        counts.data_ptr())
+        counts.data_ptr(), order.data_ptr(), tile_off.data_ptr())
     (scatter_p2g_table_stale_folded if fold_sums
      else scatter_p2g_table_stale).launches += 1
     return sums, table, counts

@@ -508,6 +508,28 @@ def scatter_bound(inputs, n_cells: int, cap: int, stride: int) -> dict:
                  _P2G_FLOPS_PER_FACE * 54 * n)
 
 
+def stale_scatter_bound(args5, n_cells: int, cap: int, stride: int) -> dict:
+    """K5's bound for scatter_p2g_table_stale's arguments (pos, vel, key,
+    plan, ...): the particles and the plan read once, a row of `stride`
+    sums, cap slots and a count written per cell, and the Wyvill weights and
+    sums of the 54 window faces of every covered particle."""
+    pos, vel, key, plan = args5[:4]
+    return bound(_nbytes(pos, vel, key, plan.covered, plan.tile_ptr,
+                         plan.tile_chunks)
+                 + (4 * stride + 16 * cap + 4) * n_cells,
+                 _P2G_FLOPS_PER_FACE * 54 * int(plan.covered.sum()))
+
+
+def tile_scatter_bound(payload, starts, cap: int, n: int) -> dict:
+    """K11's bound: the payload and the run starts read once, a row of 108 +
+    4 cap floats written per cell, and the Wyvill weights and sums of the 54
+    window faces of each of the n particles."""
+    n_cells = (starts.shape[0] - 1) * proto.W
+    return bound(_nbytes(payload, starts)
+                 + 4 * (proto.N_SUM + 4 * cap) * n_cells,
+                 _P2G_FLOPS_PER_FACE * 54 * n)
+
+
 def gather_bound(args) -> dict:
     """K2's bound for gather_mac's arguments (px, py, pz, keys, grids_u,
     grids_v, grids_w, ...): positions, keys and every grid read once, 3
@@ -587,9 +609,6 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     shape, dx, cap = cfg.grid_shape, cfg.dx, cfg.sdf_cap
     n = state.pos.shape[0]
     n_cells = cfg.n_cells
-    table_bytes = (4 * pp.N_P2G + 16 * cap) * n_cells
-    # the folded form also writes its pad lanes
-    folded_bytes = (4 * pp.SUML + 16 * cap) * n_cells
     records = {}
 
     # K1: P2G scatter + slot table, at every split-terms setting
@@ -746,16 +765,13 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
         if not full:
             partial = (key5, cov6)   # K7's partly covered random order
         if full:
-            in_bytes = _nbytes(moved, stream.vel, key5, plan.covered,
-                               plan.tile_ptr, plan.tile_chunks)
-            flops = _P2G_FLOPS_PER_FACE * 54 * covered
             idx5 = key5.long()
             records["scatter_p2g_table_stale"] = (
                 checks5, _times(lambda: k5(False), lambda: k5_plain(False)),
-                bound(in_bytes + table_bytes + 4 * n_cells, flops))
+                stale_scatter_bound(args5, n_cells, cap, pp.N_P2G))
             records["scatter_p2g_table_stale_folded"] = (
                 checks5f, _times(lambda: k5(True), lambda: k5_plain(True)),
-                bound(in_bytes + folded_bytes + 4 * n_cells, flops))
+                stale_scatter_bound(args5, n_cells, cap, pp.SUML))
             records["gather_rows8"] = (
                 checks6,
                 _times(lambda: pp.gather_rows8(*args6),
@@ -1122,12 +1138,10 @@ def _proto_records(cfg: SimConfig, dev, gen) -> dict:
                want[..., proto.N_SUM:]),
         compare("sums", got[..., :proto.N_SUM], want[..., :proto.N_SUM],
                 1e-5, 1e-6 * _max_abs(want[..., :proto.N_SUM]))]
-    out_bytes = _nbytes(got)
     del got, want
     records["tile_scatter"] = (
         checks, _times(k11, k11_plain),
-        bound(_nbytes(payload, starts) + out_bytes,
-              _P2G_FLOPS_PER_FACE * 54 * n))
+        tile_scatter_bound(payload, starts, cap, n))
 
     n_chunks = spans.shape[0]
     lanes = payload[:, :n_chunks * proto.C]

@@ -79,7 +79,13 @@ def test_scatter_edge_streams_match_plain_version(cuda):
     """K1 on _edge_stream against scatter_p2g_table_ref at caps 1 and 32,
     both sums layouts and pallas_split_terms 3, 1 and 2: sums within rtol
     1e-5 / atol 1e-6 of max|sums|, slot tables torch.equal; the stream holds
-    empty tiles, a cell past 32 particles and a tile past 4,096."""
+    empty tiles, a cell past 32 particles and a tile past 4,096. Then K5 the
+    same way against scatter_p2g_table_stale_ref (counts torch.equal too)
+    over two stale orders of the sorted stream: its chunks of 512 shuffled,
+    through plan_pass_a at budget 1, which leaves the particles of a
+    chunk's second tile uncovered; and each chunk's particles shuffled too,
+    at budget 8, which covers them all (the tile past 4,096 and the cell
+    past 32 spread over the warps of their chunks)."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(5)
     pos, shape, dx = _edge_stream(gen, cuda)
@@ -101,6 +107,38 @@ def test_scatter_edge_streams_match_plain_version(cuda):
                     got[0], want[0], rtol=1e-5,
                     atol=1e-6 * float(want[0].abs().max()), msg=str(what))
                 assert torch.equal(got[1], want[1]), what
+
+    n = pos.shape[0]
+    chunks = torch.randperm(pp.n_chunks(n), generator=gen, device=cuda)
+    by_chunk = torch.cat([torch.arange(c * pp.C, min(n, (c + 1) * pp.C),
+                                       device=cuda) for c in chunks.tolist()])
+    within = torch.cat([part[torch.randperm(part.numel(), generator=gen,
+                                            device=cuda)]
+                        for part in by_chunk.split(pp.C)])
+    for label, order, budget in (("chunks", by_chunk, 1),
+                                  ("particles", within, 8)):
+        p, v, key = (t[order].contiguous()
+                     for t in (stream.pos, stream.vel, stream.key))
+        plan = pp.plan_pass_a(key, shape, budget, 3.0)
+        covered = int(plan.covered.sum())
+        assert 0 < covered < n if budget == 1 else covered == n, label
+        for cap in (1, 32):
+            for fold in (False, True):
+                for terms in (3, 1, 2):
+                    got = pp.scatter_p2g_table_stale(
+                        p, v, key, plan, shape, dx, cap, fold_sums=fold,
+                        terms=terms)
+                    want = pp.scatter_p2g_table_stale_ref(
+                        p, v, key, plan.covered, shape, dx, cap,
+                        fold_sums=fold, terms=terms)
+                    what = (label, cap, fold, terms)
+                    torch.testing.assert_close(
+                        got[0], want[0], rtol=1e-5,
+                        atol=1e-6 * float(want[0].abs().max()), msg=str(what))
+                    assert torch.equal(got[1], want[1]), what
+                    assert torch.equal(got[2], want[2]), what
+    per_tile = pp.to_tile_major(want[2][..., None]).sum(dim=(1, 2))
+    assert int(per_tile.max()) > 4096 and int(want[2].max()) > 32
 
 
 @pytest.mark.gpu
@@ -185,6 +223,30 @@ def test_table_stream_and_proto_paths_and_kernels(cuda):
     assert {k for k, c in result["launches"].items() if c > 0} == set(
         smoke.PROTO_KERNELS)
     _check_proto_kernels_at_128(cuda)
+    _check_tile_scatter_edge_stream(cuda)
+
+
+def _check_tile_scatter_edge_stream(cuda):
+    """K11 over _edge_stream (a tile past 4,096 particles, a cell past 32,
+    empty tiles) at caps 1, 16 and 32: slot tables torch.equal to
+    tile_scatter_ref's, sums within rtol 1e-5 / atol 1e-6 of their largest
+    magnitude."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    pos, shape, dx = _edge_stream(gen, cuda)
+    vel = torch.randn(pos.shape, generator=gen, device=cuda)
+    payload, starts, _ = proto.sort_particles(pos, vel, dx, shape)
+    per_tile = starts[1:] - starts[:-1]
+    assert int(per_tile.max()) > 4096 and int((per_tile == 0).sum()) > 0
+    assert int(payload[7].max()) >= 39
+    nt = proto.tile_counts(shape)
+    for cap in (1, 16, 32):
+        got = proto.tile_scatter(starts, payload, nt, dx, cap)
+        want = proto.tile_scatter_ref(starts, payload, nt, dx, cap)
+        assert torch.equal(got[..., 108:], want[..., 108:]), cap
+        torch.testing.assert_close(
+            got[..., :108], want[..., :108], rtol=1e-5,
+            atol=1e-6 * float(want[..., :108].abs().max()), msg=str(cap))
 
 
 def _check_proto_kernels_at_128(cuda):

@@ -279,14 +279,17 @@ def test_split_terms_round_like_jax(terms, tmp_path):
 def test_particle_kernels_script_runs_on_cpu_without_jax():
     """scripts/particle_kernels.py as its command line runs it, here with
     --device cpu at 16^3 (plain versions) and this checkout as --root too
-    (imported a second time under another name), JAX made unimportable: one
-    line per package and kernel, then checks that all hold, exit 0."""
+    (imported a second time under another name), JAX made unimportable,
+    torch on one thread (as the other CPU tests run it): one line per
+    package and kernel case (K1, K2, K5 at both strides and split terms 3,
+    1, 2 on two stale orders, K11), then checks that all hold, exit 0."""
     import json
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = os.path.join(repo, "flipviscosity3d_torch", "scripts",
                           "particle_kernels.py")
-    code = ("import sys, runpy; sys.modules['jax'] = None; "
+    code = ("import sys, runpy, torch; sys.modules['jax'] = None; "
+            "torch.set_num_threads(1); "
             f"sys.argv = [{script!r}, '--device', 'cpu', '--res', '16', "
             f"'--root', {repo!r}]; "
             f"runpy.run_path({script!r}, run_name='__main__')")
@@ -294,11 +297,18 @@ def test_particle_kernels_script_runs_on_cpu_without_jax():
                          text=True, timeout=300, cwd=repo)
     assert out.returncode == 0, out.stderr
     lines = [json.loads(ln) for ln in out.stdout.splitlines()]
-    kernels = ["scatter_p2g_table", "scatter_p2g_table_folded", "gather_mac",
-               "gather_mac_one_grid"]
-    assert [ln["kernel"] for ln in lines[:-1]] == kernels * 2
+    stale = [(name, order, terms)
+             for order in ("falling", "random steps")
+             for name in ("scatter_p2g_table_stale",
+                          "scatter_p2g_table_stale_folded")
+             for terms in (3, 1, 2)]
+    kernels = [(name, None, None) for name in (
+        "scatter_p2g_table", "scatter_p2g_table_folded", "gather_mac",
+        "gather_mac_one_grid")] + stale + [("tile_scatter", None, None)]
+    assert [(ln["kernel"], ln.get("order"), ln.get("terms"))
+            for ln in lines[:-1]] == kernels * 2
     assert all(len(ln["ms"]) == 2 and ln["bound_ms"] > 0
                for ln in lines[:-1])
     checks = lines[-1]["checks"]
-    assert lines[-1]["ok"] and len(checks) == 8
+    assert lines[-1]["ok"] and len(checks) == 27
     assert all(c["ok"] for c in checks)

@@ -150,6 +150,35 @@ def test_stale_scatter_ref_matches_jax_inkernel_rank():
     assert int(tcounts.sum()) == int(cov.sum())
 
 
+def test_stale_order_ranks_match_the_stale_scatter_ref():
+    """The plain version of K5's order half (stale_order_ref) at 16^3,
+    budget 2 (some particles uncovered): it orders exactly the covered
+    particles, by key and stream position; the ranks it implies are
+    stale_ranks', which scatter_p2g_table_stale_ref slots by (and which
+    test_stale_scatter_ref_matches_jax_inkernel_rank holds against JAX);
+    its tile offsets follow the plain version's counts."""
+    pos, vel = _stale_particles(3000, seed=11)
+    _, tkey = _keys(pos)
+    plan = tpp.plan_pass_a(tkey, SHAPE, 2, 3.0)
+    assert 0 < int(plan.covered.sum()) < tkey.shape[0]
+    order, tile_off = tpp.stale_order_ref(tkey, plan, SHAPE)
+    assert torch.equal(torch.sort(order).values,
+                       torch.nonzero(plan.covered)[:, 0])
+    key_o = tkey[order]
+    assert bool((key_o[1:] >= key_o[:-1]).all())
+    same = key_o[1:] == key_o[:-1]
+    assert bool((order[1:][same] > order[:-1][same]).all())
+    rank = torch.full(tkey.shape, -1, dtype=torch.int32)
+    rank[order] = tpp.run_ranks(key_o, torch.int32)
+    assert torch.equal(rank[plan.covered],
+                       tpp.stale_ranks(tkey, plan.covered))
+    _, _, counts = tpp.scatter_p2g_table_stale_ref(
+        torch.from_numpy(pos), torch.from_numpy(vel), tkey, plan.covered,
+        SHAPE, DX, 4)
+    per_tile = tpp.to_tile_major(counts[..., None].long()).sum(dim=(1, 2))
+    assert torch.equal(tile_off[1:] - tile_off[:-1], per_tile)
+
+
 def test_gather_rows8_ref_matches_jax_kernel():
     """K6's plain version against gather_rows8 over
     pack_cols8(stack_tile_major(node_corner_columns(phi))) through a
