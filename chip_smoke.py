@@ -25,7 +25,11 @@
    of an f32 and a bf16 image, sorted and in a random, partly covered
    order; K8 detile at F = 108 and 3; the revisit probes K9 and K10 at F =
    128; the prototype's K11 tile_scatter and K12 tile_gather on its own
-   128^3 pool of 4,456,448 particles, cap 16, F = 128), and
+   128^3 pool of 4,456,448 particles, cap 16, F = 128; K5, K2 and
+   gather_mac_one_grid once more at the slab pipeline's inputs: an inner
+   slab of the 4-slab cut, its local grid of B + 2H = 48 rows, its
+   key-sorted stream with the dead rows of its capacity, at each split-terms
+   setting), and
    times the kernel, the plain version and, where one exists, the one
    PyTorch call that computes the same function (for K7 one advanced
    index of the image, for K2 grid_sample per component, with its
@@ -72,6 +76,27 @@
    - "bench_bf16": the bench run again under pallas_gather_dtype "bf16";
      fails unless its residuals hold and its final positions differ from
      those of "bench", the same run under "f32".
+   Then the slab pipeline (flipviscosity3d_torch/parallel) on the bench
+   scene in 4 slabs (B = 32, H = 8), MG-PCG for both solves, through
+   advance_sharded on a LocalGroup of 4 rank-threads on the card, each
+   frame's line with its substeps, iterations, residuals, overflow, liquid
+   cells, migration, uncovered particles per slab, launches and
+   collectives per substep, the path's line with substeps/s beside the
+   "bench" run's and peak memory (smoke.run_sharded_path):
+   - "sharded": engine "pallas", one warm frame and 3 frames of dt = 0.01;
+     the warm frame is held against the single-device advance from the
+     same state (equal substeps, iterations within 1 per solve, sorted
+     positions and the owned rows of u within 5e-4); every frame must keep
+     its residuals under their tolerances, lose no particle to migration,
+     and launch K5 scatter_p2g_table_stale, K2 gather_mac and
+     gather_mac_one_grid once per slab and substep and no other kernel
+     (the V-cycle's gathered tail would run K3 / K4, but at these grids it
+     is a single level, solved by its dense inverse);
+   - "sharded_stream": the same on engine "stream", 2 frames, which must
+     launch no kernel at all;
+   - "sharded_dist": one frame on a DistGroup of world size 1 over NCCL (a
+     FileStore under build/) against a LocalGroup of one rank from the
+     same state: integer diagnostics and collective counts equal.
 5. Drives three paths through the scene CLI (flipviscosity3d_torch.cli),
    from mesh and scene files that it writes under build/smoke_scenes:
    - "cli64": the CLI at its default resolution of 64, a sphere drop in an
@@ -85,7 +110,8 @@
      simulation then runs under torch.profiler (device busy time over wall
      time, and the largest device rows), and on its final state step 3 is
      repeated at the 256^3 shapes: all fifteen kernel records against
-     their plain versions (257^3 levels, ~35.5M particles; the plain scatters
+     their plain versions (257^3 levels, ~35.5M particles, the slab checks
+     on a local grid of 80 rows; the plain scatters
      add their values in 16 runs of particles, to fit the card; K7 on the
      54-lane image, as the JAX step splits its gather there, and on the
      108-lane one if the card has the room; K9 and K10 over the first 2^23
@@ -99,7 +125,10 @@
      names no particle engine and a bucket_capacity of 12 (what
      scenes/highres_bunny.json gives, the pool standing in for its mesh),
      one warm frame and 2 frames of dt = 0.01; fails unless the run's
-     config says "table" (the default) and K3 and K4 ran.
+     config says "table" (the default) and K3 and K4 ran;
+   - "sharded256": the bench scene at 256^3 in 4 slabs on "pallas" through
+     advance_sharded, one warm frame and 1 frame, with the checks of
+     "sharded" but the single-device comparison; prints its peak memory.
 6. Prints the card line, one JSON line of kernel records, and as its last
    line {"ok": true, "device": {...}} when every check held; otherwise
    prints what failed and exits 1.
@@ -119,6 +148,8 @@ TERMS2_FRAMES = 2
 LARGE_RES = 256
 SCENE_DIR = os.path.join(ROOT, "build", "smoke_scenes")
 TABLE256 = dict(particle_engine=None, bucket_capacity=12)
+# the slab pipeline's paths at RES: (name, particle engine, timed frames)
+SHARDED_PATHS = (("sharded", "pallas", 3), ("sharded_stream", "stream", 2))
 RECORD_KEYS = ("name", "route", "source", "replaces", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -187,6 +218,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = {r["name"]: 0 for r in records}
+    bench_rate = {}
 
     def report(name, result):
         """Count a path's failures and launches and print its summary."""
@@ -228,6 +260,8 @@ def main() -> int:
         if name == "bench":
             bench_pos = pos   # the f32 run that "bench_bf16" is held against
             bench_frames = result["frames"]
+            # the single-device rate the sharded paths are printed beside
+            bench_rate[RES] = result["substeps_per_s"]
         del pos
         report(name, result)
     result = smoke.run_main_path("cuda", RES, TERMS2_FRAMES,
@@ -248,6 +282,56 @@ def main() -> int:
                                      **overrides)
         del result["sim"]
         report(name, result)
+
+    def report_sharded(name, result, res):
+        """A slab-pipeline path's summary line (its frame lines came
+        before); count its failures and launches."""
+        failures.extend(f"path {name}: {f}" for f in result["failures"])
+        for k in launches:
+            launches[k] += result["launches"][k]
+        frames = result["frames"]
+        print(json.dumps({
+            "path": name,
+            "particles": result["particles"],
+            "slabs": result["slabs"],
+            "engine": result["engine"],
+            "timed_frames": result["timed_frames"],
+            "substeps": result["substeps"],
+            "frame_substeps": [f["substeps"] for f in frames],
+            "iterations": [[f["pressure_iterations"],
+                            f["viscosity_iterations"]] for f in frames],
+            "residuals": [[f["pressure_residual"], f["pressure_tolerance"],
+                           f["viscosity_residual"],
+                           f["viscosity_tolerance"]] for f in frames],
+            "bucket_overflow": [f["bucket_overflow"] for f in frames],
+            "liquid_cells": [f["liquid_cells"] for f in frames],
+            "migrated": [f["migrated"] for f in frames],
+            "migration_lost": [f["migration_lost"] for f in frames],
+            "uncovered_per_slab": [f["uncovered_per_slab"] for f in frames],
+            "vs_single_device": result["vs_single_device"],
+            "substeps_per_s": result["substeps_per_s"],
+            "single_device_substeps_per_s": bench_rate[res],
+            "peak_bytes": result["peak_bytes"],
+            "launches": result["launches"],
+            "launches_per_substep": [f["launches_per_substep"]
+                                     for f in frames],
+            "collectives_per_substep": frames[-1][
+                "collectives_per_substep"],
+            "path_kernels": result["path_kernels"],
+            "card": card,
+        }), flush=True)
+        torch.cuda.empty_cache()
+
+    for name, engine, frames in SHARDED_PATHS:
+        result = smoke.run_sharded_path("cuda", RES, frames, engine=engine)
+        del result["state"]
+        report_sharded(name, result, RES)
+    result = smoke.run_sharded_dist(
+        "cuda", RES, os.path.join(ROOT, "build", "sharded_dist.store"))
+    print(json.dumps({"path": "sharded_dist", **result, "card": card}),
+          flush=True)
+    failures.extend(f"path sharded_dist: {f}" for f in result["failures"])
+    torch.cuda.empty_cache()
 
     def report_checks(name, result, lines):
         """Print a check path's result `lines` and summary; count its
@@ -286,6 +370,7 @@ def main() -> int:
     result = smoke.run_scene_path("cuda", SCENE_DIR, "bench256", LARGE_RES,
                                   3)
     run = result.pop("run")
+    bench_rate[LARGE_RES] = result["substeps_per_s"]
     report("bench256", result)
     prof = smoke.profile_sim(run.sim, 1, top=12)
     print(json.dumps({
@@ -326,6 +411,11 @@ def main() -> int:
     report("table256", result)
     del result
     torch.cuda.empty_cache()
+
+    result = smoke.run_sharded_path("cuda", LARGE_RES, 1, compare=False)
+    del result["state"]
+    report_sharded("sharded256", result, LARGE_RES)
+    del result
 
     if failures:
         for f in failures:

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -100,9 +101,18 @@ def build() -> dict:
     return {"path": str(out), "seconds": seconds, "log": log}
 
 
+# the slab pipeline's rank-threads may reach their first kernel together
+_LOCK = threading.Lock()
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _loaded() -> ctypes.CDLL:
     return ctypes.CDLL(build()["path"])
+
+
+def _library() -> ctypes.CDLL:
+    with _LOCK:
+        return _loaded()
 
 
 P = ctypes.c_void_p
@@ -127,6 +137,13 @@ def launch(name: str, argtypes: tuple, *args) -> None:
     err = function(name, argtypes)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def count(fn) -> None:
+    """Add one to the launch count of wrapper `fn` (thread-safe: the slab
+    pipeline launches from several threads)."""
+    with _LOCK:
+        fn.launches += 1
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:

@@ -23,13 +23,21 @@ _NEIGHBOR_OFFSETS = (
 )
 
 
-def extrapolate_grid(grid, valid, num_layers: int):
+def extrapolate_grid(grid, valid, num_layers: int, interior=None,
+                     exchange=None):
     """Extrapolate `grid` values from `valid` cells outward `num_layers`
-    times. Returns (grid, valid) after extrapolation."""
+    times. Returns (grid, valid) after extrapolation.
+
+    `interior` replaces the not-on-array-border mask (the slab pipeline
+    passes its rows' interiority in the GLOBAL domain); `exchange(g, v) ->
+    (g, v)` runs before each layer (the slabs' halo refresh)."""
     shape = grid.shape
-    interior = interior_mask(shape, grid.device)
+    if interior is None:
+        interior = interior_mask(shape, grid.device)
     g, v = grid, valid
     for _ in range(num_layers):
+        if exchange is not None:
+            g, v = exchange(g, v)
         vf = v.to(g.dtype)
         v_int = (v & interior).to(g.dtype)
         cnt_all = torch.zeros_like(g)

@@ -92,6 +92,42 @@ def fraction_inside_quad(phi_bl, phi_br, phi_tl, phi_tr):
                                 torch.where(count == 1, res1, zero))))
 
 
+def _sorted_triangle_fraction(phi0, phi1, phi2):
+    """Area fraction when phi0 has the lone sign (levelsetutils.h:40-43)."""
+    return _safe_div(phi0 * phi0, 2.0 * (phi0 - phi1) * (phi0 - phi2))
+
+
+def area_fraction_triangle(phi0, phi1, phi2):
+    """Fraction of a triangle inside phi < 0 (levelsetutils.cpp:121-145).
+    The all-inside triangle gives 0, as the reference's does
+    (levelsetutils.cpp:124-126) and the JAX package's."""
+    phi0, phi1, phi2 = torch.broadcast_tensors(
+        *(torch.as_tensor(p, dtype=torch.float32) for p in (phi0, phi1,
+                                                             phi2)))
+    n0, n1, n2 = phi0 < 0, phi1 < 0, phi2 < 0
+    count = n0.to(torch.int32) + n1.to(torch.int32) + n2.to(torch.int32)
+    rot = ((phi0, phi1, phi2), (phi1, phi2, phi0), (phi2, phi0, phi1))
+    lone = [_sorted_triangle_fraction(*r) for r in rot]
+    # count 1: the lone negative corner's fraction; count 2: one less the
+    # lone positive corner's
+    c1 = torch.where(n0, lone[0], torch.where(n1, lone[1], lone[2]))
+    c2 = torch.where(~n0, 1.0 - lone[0],
+                     torch.where(~n1, 1.0 - lone[1], 1.0 - lone[2]))
+    zero = torch.zeros_like(phi0)
+    return torch.where(count == 3, zero, torch.where(
+        count == 2, c2, torch.where(count == 1, c1, zero)))
+
+
+def area_fraction_quad(phi00, phi10, phi01, phi11):
+    """Fraction of a square inside phi < 0 by the centre-point fan of four
+    triangles (levelsetutils.cpp:173-179)."""
+    mid = 0.25 * (phi00 + phi10 + phi01 + phi11)
+    return 0.25 * (area_fraction_triangle(phi00, phi10, mid)
+                   + area_fraction_triangle(phi10, phi11, mid)
+                   + area_fraction_triangle(phi11, phi01, mid)
+                   + area_fraction_triangle(phi01, phi00, mid))
+
+
 def _sort4(a, b, c, d):
     """Sorting network matching levelsetutils.h:_sort (5 compare-swaps)."""
     a, b = torch.minimum(a, b), torch.maximum(a, b)

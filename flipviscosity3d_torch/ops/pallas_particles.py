@@ -430,8 +430,8 @@ def scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
         pos_s.data_ptr(), vel_s.data_ptr(), key_s.data_ptr(),
         rank.data_ptr(), n, ni, nj, nk, cap, _f32(dx), c1, c2, c3, r2,
         stride, _kernel_terms(terms), sums.data_ptr(), table.data_ptr())
-    (scatter_p2g_table_folded if fold_sums
-     else scatter_p2g_table).launches += 1
+    _build.count(scatter_p2g_table_folded if fold_sums
+                 else scatter_p2g_table)
     return sums, table
 
 
@@ -561,8 +561,8 @@ def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
         plan.tile_chunks.data_ptr(), ni, nj, nk, cap, _f32(dx), c1, c2, c3,
         r2, stride, _kernel_terms(terms), sums.data_ptr(), table.data_ptr(),
         counts.data_ptr(), order.data_ptr(), tile_off.data_ptr())
-    (scatter_p2g_table_stale_folded if fold_sums
-     else scatter_p2g_table_stale).launches += 1
+    _build.count(scatter_p2g_table_stale_folded if fold_sums
+                 else scatter_p2g_table_stale)
     return sums, table, counts
 
 
@@ -745,7 +745,7 @@ def gather_mac(px, py, pz, keys, grids_u, grids_v, grids_w, dx, grid_shape,
         px.data_ptr(), py.data_ptr(), pz.data_ptr(), keys.data_ptr(),
         n, n_grids, *ptrs, ni, nj, nk, _f32(dx), _exact_inverse(dx),
         _kernel_terms(terms), out.data_ptr())
-    (gather_mac if n_grids == 2 else gather_mac_one_grid).launches += 1
+    _build.count(gather_mac if n_grids == 2 else gather_mac_one_grid)
     return out
 
 

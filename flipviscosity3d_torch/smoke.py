@@ -41,6 +41,12 @@ kernel is held against its plain version at the 256^3 shapes too (the
 plain scatters in slabs of particles, to fit the card). `run_cli64`
 drives the CLI at its default resolution with exports, checkpoints and a
 resumed second run.
+
+`run_sharded_path` drives the slab pipeline (parallel/shard_step.py) on
+the bench scene in slabs, on a LocalGroup of rank-threads, and holds its
+warm frame against the single-device advance from the same state;
+`run_sharded_dist` runs one frame on a DistGroup of world size 1 against a
+LocalGroup of one rank; `profile_sharded` traces sharded frames.
 """
 
 from __future__ import annotations
@@ -142,6 +148,14 @@ ENGINE_PATHS = (
     ("table", DT, 0.0, {"particle_engine": "table"}),
     ("stream", DT, 0.0, {"particle_engine": "stream"}),
 )
+
+# The slab pipeline's paths (run_sharded_path): the slabs of the bench
+# scene, the kernels a sharded "pallas" substep launches once per slab, and
+# the bar of the JAX package's tests/test_shard_step.py:207-234.
+SHARDED_SLABS = 4
+SHARDED_KERNELS = ("scatter_p2g_table_stale", "gather_mac",
+                   "gather_mac_one_grid")
+SHARDED_ATOL = 5e-4
 
 # One NVIDIA H100 SXM, peak rates from its datasheet: HBM bytes/s and the
 # float32 rate outside the tensor cores, FLOP/s.
@@ -600,7 +614,10 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     "falling" (where K5 is also held at the split terms); K1 and K5 in both
     layouts of their sums, whichever the grid's size would choose
     (_scatter_checks); K7-K10 (_column_records); K11 and K12 on the
-    prototype's own input (_proto_records). Returns
+    prototype's own input (_proto_records); K5, K2 and
+    gather_mac_one_grid once more at the sharded paths' inputs, one
+    slab's local grid and key-sorted stream with its dead rows, their
+    checks added to those records (_slab_checks). Returns
     one record per kernel with its checks, the kernel's, the plain version's
     and the library call's times, and its bound."""
     dev = state.pos.device
@@ -783,6 +800,8 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     records.update(_column_records(stream.key, partial, (gu, gv, gw), shape,
                                    gen))
     records.update(_proto_records(cfg, dev, gen))
+    for name, slab in _slab_checks(state, cfg, gen, ref_slabs).items():
+        records[name][0].extend(slab)
 
     out = []
     for fn, source, replaces in KERNELS:
@@ -802,6 +821,85 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
             rec["levels"] = levels
         out.append(rec)
     return out
+
+
+def _slab_checks(state, cfg: SimConfig, gen, ref_slabs: int) -> dict:
+    """K5, K2 and gather_mac_one_grid at the inputs the sharded "pallas"
+    paths give them: an inner slab (rank 1 of SHARDED_SLABS) of `state` as
+    shard_simstate cuts it, its local grid (B + 2H, J, K), its particles in
+    slab-local x with the dead rows of its capacity, sorted and planned by
+    shard_step.slab_stream (dead rows keyed _IMAX, last, uncovered). At
+    each of SPLIT_TERMS: K5 against its plain version (sums within rtol
+    1e-5 and atol 1e-6 * max|sums|, table and counts exact); K2 with two
+    random grids of the slab's face shapes (u's cropped row padded back as
+    zeros, as the slab substep pads it) and with one at midpoints (the
+    sorted positions moved by normal steps of 3 cells, dead rows keyed
+    _IMAX) torch.equal to gather_mac_ref -> {kernel name: checks}."""
+    from .parallel import shard_step as sh
+
+    rank, dx, cap = 1, cfg.dx, cfg.sdf_cap
+    spec = sh.make_spec(cfg, SHARDED_SLABS,
+                        n_particles=int(state.pos.shape[0]))
+    ss = sh.shard_simstate(state, cfg, spec)
+    pos, vel, alive = (t[rank].clone() for t in (ss.pos, ss.vel, ss.alive))
+    faces = tuple(tuple(t.shape[1:]) for t in (ss.u, ss.v, ss.w))
+    del ss
+    local = faces[0]
+    px = pos[:, 0] - float(sh.slab_origin(rank, spec, dx))
+    fields, salive, key, plan = sh.slab_stream(
+        px, pos[:, 1], pos[:, 2], *vel.unbind(dim=1), alive, cfg, local)
+    del pos, vel, px
+    spos = torch.stack(fields[:3], dim=1)
+    svel = torch.stack(fields[3:], dim=1)
+    n_alive, covered = int(salive.sum()), int(plan.covered.sum())
+    tag = (f"slab {rank} of {SHARDED_SLABS} ({'x'.join(map(str, local))}, "
+           f"{n_alive} alive, {key.shape[0] - n_alive} dead rows): ")
+    k5 = [{"check": f"{tag}coverage", "covered": covered,
+           "alive": n_alive, "ok": covered == n_alive}]
+    for terms in SPLIT_TERMS:
+        got = pp.scatter_p2g_table_stale(spos, svel, key, plan, local, dx,
+                                         cap, terms=terms)
+        want = pp.scatter_p2g_table_stale_ref(spos, svel, key, plan.covered,
+                                              local, dx, cap,
+                                              slabs=ref_slabs, terms=terms)
+        label = tag + _terms_label(terms)
+        k5 += [compare(f"{label}sums", got[0], want[0], 1e-5,
+                       1e-6 * _max_abs(want[0])),
+               {"check": f"{label}table and counts exact",
+                "ok": all(bool(torch.equal(a, b))
+                          for a, b in zip(got[1:], want[1:]))}]
+        del got, want
+    grids = []
+    for _ in range(2):
+        gu, gv, gw = (torch.randn(fs, generator=gen, device=spos.device)
+                      for fs in faces)
+        grids.append((torch.nn.functional.pad(gu, (0, 0, 0, 0, 0, 1)), gv,
+                      gw))
+    gu2, gv2, gw2 = ([g[c] for g in grids] for c in range(3))
+    spx, spy, spz = fields[:3]
+    mid = spos + 3.0 * dx * torch.randn(spos.shape, generator=gen,
+                                        device=spos.device)
+    key_m = torch.where(salive, pp.key_of_position(mid, dx, local),
+                        torch.full_like(key, sh._IMAX))
+    mx, my, mz = (mid[:, a].contiguous() for a in range(3))
+    k2, k2b = [], []
+    for terms in SPLIT_TERMS:
+        label = tag + _terms_label(terms)
+        k2.append(_equal(
+            f"{label}n_grids=2 at particles",
+            pp.gather_mac(spx, spy, spz, key, gu2, gv2, gw2, dx, local,
+                          terms),
+            pp.gather_mac_ref(spx, spy, spz, key, gu2, gv2, gw2, dx, local,
+                              terms)))
+        k2b.append(_equal(
+            f"{label}n_grids=1 at midpoints",
+            pp.gather_mac_one_grid(mx, my, mz, key_m, *grids[0], dx, local,
+                                   terms),
+            pp.gather_mac_ref(mx, my, mz, key_m, *([g] for g in grids[0]),
+                              dx, local, terms)))
+    k5_name = "scatter_p2g_table_stale" + (
+        "_folded" if pp.large_grid(local) else "")
+    return {k5_name: k5, "gather_mac": k2, "gather_mac_one_grid": k2b}
 
 
 # bytes written between two cold launches: more than the 50 MB L2 holds
@@ -1461,6 +1559,37 @@ def profile_sim(sim, frames: int, top: int = 25, dt: float = DT) -> dict:
     """Trace the next `frames` frames of `dt` of a simulation on the card
     with torch.profiler: wall time, summed device kernel time, and the `top`
     operators by device self time."""
+    return _trace(lambda: sum(sim.advance(dt).substeps
+                              for _ in range(frames)), frames, top)
+
+
+def profile_sharded(res: int, frames: int = 1, n_slabs: int = SHARDED_SLABS,
+                    engine: str = "pallas", top: int = 25,
+                    dt: float = DT) -> dict:
+    """profile_sim for the slab pipeline: the bench scene at res^3 in
+    n_slabs slabs on a LocalGroup on the card, one warm frame, then
+    `frames` frames traced."""
+    from .parallel import shard_step as sh
+    from .parallel.collectives import LocalGroup
+
+    sim = bench_scene("cuda", res, particle_engine=engine)
+    cfg, state = sim.cfg, sim.state
+    spec = sh.make_spec(cfg, n_slabs, n_particles=int(state.pos.shape[0]))
+    group = LocalGroup(n_slabs, "cuda")
+    box = [sh.shard_simstate(state, cfg, spec, group)]
+    del sim, state
+
+    def advance():
+        box[0], d = sh.advance_sharded(box[0], dt, cfg, spec, group)
+        return d.substeps
+
+    advance()
+    return _trace(lambda: sum(advance() for _ in range(frames)), frames,
+                  top)
+
+
+def _trace(run, frames: int, top: int) -> dict:
+    """run() (-> substeps) under torch.profiler on the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1468,7 +1597,7 @@ def profile_sim(sim, frames: int, top: int = 25, dt: float = DT) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        substeps = sum(sim.advance(dt).substeps for _ in range(frames))
+        substeps = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies), so no time counts twice
@@ -1483,3 +1612,233 @@ def profile_sim(sim, frames: int, top: int = 25, dt: float = DT) -> dict:
                  "device_ms": e.self_device_time_total / 1e3}
                 for e in events[:top]],
     }
+
+
+# ---------------------------------------------------------------------------
+# the slab pipeline (parallel/): the bench scene in slabs
+# ---------------------------------------------------------------------------
+
+def _sharded_kernels(cfg: SimConfig, spec) -> tuple:
+    """The kernels a sharded substep under `cfg` launches once per slab:
+    under "pallas" K5 (folded where a slab holds >= 2^24 cells), K2 of two
+    grids and of one; none under "stream". The slab V-cycle's levels are
+    halo'd stencils in plain torch; its gathered tail would run K3 / K4,
+    but at the power-of-two grids of the paths it is a single level (8^3
+    pressure, 5^3 viscosity blocks; slab_mg's docstring), solved by its
+    dense inverse, so K3 / K4 are not among them."""
+    if cfg.particle_engine != "pallas":
+        return ()
+    local = (spec.B + 2 * spec.H, cfg.jsize, cfg.ksize)
+    k5 = SHARDED_KERNELS[0] + ("_folded" if pp.large_grid(local) else "")
+    return (k5,) + SHARDED_KERNELS[1:]
+
+
+def _sharded_frame_line(d, launches, counts, substeps_s=None) -> dict:
+    line = {k: getattr(d, k) for k in (
+        "substeps", "pressure_iterations", "viscosity_iterations",
+        "pressure_residual", "pressure_tolerance", "viscosity_residual",
+        "viscosity_tolerance", "bucket_overflow", "liquid_cells",
+        "max_velocity", "uncovered_pass_a", "uncovered_pass_b", "migrated",
+        "migration_lost")}
+    line["uncovered_per_slab"] = [list(u) for u in d.slab_uncovered]
+    line["launches_per_substep"] = {
+        k: v / max(d.substeps, 1) for k, v in launches.items() if v}
+    line["collectives_per_substep"] = {
+        k: {"calls": c["calls"] / max(d.substeps, 1),
+            "bytes": c["bytes"] / max(d.substeps, 1)}
+        for k, c in counts.items()}
+    if substeps_s is not None:
+        line["substeps_per_s"] = substeps_s
+    return line
+
+
+def compare_sharded(ss, spec, sdiag, single_state, diag, atol=SHARDED_ATOL):
+    """The sharded frame (ss, sdiag) against the single-device one
+    (single_state, diag) from the same state: equal substeps, iterations
+    within 1 per solve, sorted positions and the owned rows of u within
+    `atol` -> (failures, max differences)."""
+    from .parallel import shard_step as sh
+
+    failures = []
+    if sdiag.substeps != diag.substeps:
+        failures.append(f"substeps {sdiag.substeps} against the single "
+                        f"device's {diag.substeps}")
+    for solve in ("pressure_iterations", "viscosity_iterations"):
+        a, b = getattr(sdiag, solve), getattr(diag, solve)
+        if abs(a - b) > 1:
+            failures.append(f"{solve} {a} against the single device's {b}")
+    pos, _ = sh.gather_particles(ss)
+    want = single_state.pos.cpu().numpy()
+    diffs = {}
+    if pos.shape != want.shape:
+        failures.append(f"{pos.shape[0]} particles against "
+                        f"{want.shape[0]}")
+    else:
+        diffs["pos"] = float(np.abs(np.sort(pos, axis=0)
+                                    - np.sort(want, axis=0)).max())
+    diffs["u"] = float(np.abs(sh.gather_grid_u(ss, spec)
+                              - single_state.u.cpu().numpy()).max())
+    failures += [f"max |{k} - single device| = {v} > {atol}"
+                 for k, v in diffs.items() if not v <= atol]
+    return failures, diffs
+
+
+def run_sharded_path(device, res: int, frames: int,
+                     n_slabs: int = SHARDED_SLABS, engine: str = "pallas",
+                     dt: float = DT, compare: bool = True, log=print,
+                     **overrides) -> dict:
+    """The bench scene at res^3 in n_slabs slabs through advance_sharded on
+    a LocalGroup of n_slabs rank-threads on `device`: one warm frame, then
+    `frames` timed frames of `dt`. With `compare` the single-device advance
+    first runs the warm frame from the same state, and the sharded warm
+    frame is held against it (compare_sharded). Every frame must keep its
+    residuals under their tolerances, lose no particle to migration and,
+    on the card, launch each of the path's kernels (_sharded_kernels) once
+    per slab and substep and no other kernel. The launch and collective
+    counts are set to 0 just before the first sharded frame; each frame's
+    line carries its own (per substep). Returns the frames' lines, the
+    totals, substeps/s over the timed frames, peak memory and `failures`."""
+    from .core import step as tstep
+    from .parallel import shard_step as sh
+    from .parallel.collectives import LocalGroup
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    sim = bench_scene(dev, res, particle_engine=engine, **overrides)
+    cfg, state = sim.cfg, sim.state
+    del sim
+    n = int(state.pos.shape[0])
+    failures, diffs = [], {}
+    single = None
+    if compare:
+        single = tstep.advance(state, dt, cfg)
+    spec = sh.make_spec(cfg, n_slabs, n_particles=n)
+    group = LocalGroup(n_slabs, dev)
+    ss = sh.shard_simstate(state, cfg, spec, group)
+    del state
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
+    log(json.dumps({"scene": f"{res}^3", "particles": n, "slabs": n_slabs,
+                    "spec": spec._asdict(), "engine": engine,
+                    "device": str(dev), "dt": dt}))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels = _sharded_kernels(cfg, spec)
+    lines, totals = [], dict.fromkeys(launch_counts(), 0)
+    wall = 0.0
+    for frame in range(frames + 1):
+        reset_launch_counts()
+        group.reset_counts()
+        _sync(dev)
+        t1 = time.perf_counter()
+        ss, d = sh.advance_sharded(ss, dt, cfg, spec, group)
+        _sync(dev)
+        secs = time.perf_counter() - t1
+        if frame:
+            wall += secs
+        launches = launch_counts()
+        line = _sharded_frame_line(d, launches, group.counts(),
+                                   d.substeps / secs)
+        line.update(frame=frame, warm=frame == 0)
+        if frame == 0 and single is not None:
+            f, diffs = compare_sharded(ss, spec, d, *single)
+            failures += [f"warm frame: {x}" for x in f]
+            line["vs_single_device"] = dict(
+                diffs, substeps=single[1].substeps,
+                pressure_iterations=single[1].pressure_iterations,
+                viscosity_iterations=single[1].viscosity_iterations)
+            single = None
+        log(json.dumps(line))
+        lines.append(line)
+        for k, v in launches.items():
+            totals[k] += v
+        for solve in ("pressure", "viscosity"):
+            res_, tol = (getattr(d, solve + "_residual"),
+                         getattr(d, solve + "_tolerance"))
+            if not res_ <= tol:
+                failures.append(f"frame {frame}: {solve} residual {res_} "
+                                f"above its tolerance {tol}")
+        if d.migration_lost:
+            failures.append(f"frame {frame}: {d.migration_lost} particles "
+                            "lost to migration")
+        if dev.type == "cuda":
+            for k, v in launches.items():
+                want = n_slabs * d.substeps if k in kernels else 0
+                if v != want:
+                    failures.append(f"frame {frame}: kernel {k} launched {v} "
+                                    f"times, not {want}")
+    pos, _ = sh.gather_particles(ss)
+    if pos.shape[0] != n:
+        failures.append(f"{pos.shape[0]} particles at the end, not {n}")
+    if not np.isfinite(pos).all():
+        failures.append("non-finite particle positions")
+    timed = sum(ln["substeps"] for ln in lines[1:])
+    return {
+        "particles": n, "slabs": n_slabs, "engine": engine,
+        "frames": lines, "timed_frames": frames, "substeps": timed,
+        "vs_single_device": diffs,
+        "substeps_per_s": timed / wall if wall else None,
+        "peak_bytes": (torch.cuda.max_memory_allocated()
+                       if dev.type == "cuda" else None),
+        "launches": totals, "path_kernels": list(kernels),
+        "setup_s": setup_s, "failures": failures, "state": ss, "spec": spec,
+    }
+
+
+def run_sharded_dist(device, res: int, store_path: str, dt: float = DT,
+                     engine: str = "pallas", log=print) -> dict:
+    """One frame of the bench scene at res^3 through advance_sharded on a
+    DistGroup of world size 1 (NCCL on the card, gloo on the CPU; a
+    FileStore at `store_path`), held against a LocalGroup of one rank from
+    the same state: integer diagnostics equal, the largest float
+    differences of positions and u reported (and within SHARDED_ATOL)."""
+    import torch.distributed as dist
+
+    from .parallel import shard_step as sh
+    from .parallel.collectives import DistGroup, LocalGroup
+
+    dev = torch.device(device)
+    sim = bench_scene(dev, res, particle_engine=engine)
+    cfg, state = sim.cfg, sim.state
+    del sim
+    spec = sh.make_spec(cfg, 1, n_particles=int(state.pos.shape[0]))
+    out = {}
+    if os.path.exists(store_path):
+        os.remove(store_path)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        store=dist.FileStore(store_path, 1), rank=0, world_size=1)
+    try:
+        for name, group in (("dist", DistGroup(dev)),
+                            ("local", LocalGroup(1, dev))):
+            ss = sh.shard_simstate(state, cfg, spec, group)
+            ss, d = sh.advance_sharded(ss, dt, cfg, spec, group)
+            out[name] = (ss, d, group.counts())
+            log(json.dumps({"group": name, **_sharded_frame_line(
+                d, {}, group.counts())}))
+    finally:
+        dist.destroy_process_group()
+    (ss_d, d_d, c_d), (ss_l, d_l, c_l) = out["dist"], out["local"]
+    failures = []
+    ints = ("substeps", "pressure_iterations", "viscosity_iterations",
+            "bucket_overflow", "liquid_cells", "migrated", "migration_lost",
+            "uncovered_pass_a", "uncovered_pass_b")
+    for k in ints:
+        if getattr(d_d, k) != getattr(d_l, k):
+            failures.append(f"{k}: DistGroup {getattr(d_d, k)}, LocalGroup "
+                            f"{getattr(d_l, k)}")
+    if c_d != c_l:
+        failures.append(f"collectives differ: {c_d} against {c_l}")
+    diffs = {
+        "pos": float((ss_d.pos - ss_l.pos).abs().max()),
+        "u": float((ss_d.u - ss_l.u).abs().max()),
+        "alive_equal": bool(torch.equal(ss_d.alive, ss_l.alive)),
+    }
+    if not diffs["alive_equal"]:
+        failures.append("the two groups keep different particles alive")
+    failures += [f"max |{k}| difference {diffs[k]} > {SHARDED_ATOL}"
+                 for k in ("pos", "u") if not diffs[k] <= SHARDED_ATOL]
+    return {"diffs": diffs, "substeps": d_d.substeps,
+            "iterations": [d_d.pressure_iterations,
+                           d_d.viscosity_iterations],
+            "failures": failures}

@@ -177,8 +177,11 @@ _ROWS = (
 
 
 def build_viscosity_system(u, v, w, volumes: VolumeGrids, states: FaceStates,
-                           viscosity_node, dt, cfg: SimConfig
+                           viscosity_node, dt, cfg: SimConfig, row_masks=None
                            ) -> ViscositySystem:
+    """`row_masks` (maskU, maskV, maskW) replaces the rows' index ranges
+    ([1, size) per axis, the reference's assembly loop bounds); the slab
+    pipeline passes its slabs' ranges in the GLOBAL domain."""
     factor = float(np.float32(dt) / np.float32(cfg.dx * cfg.dx))
     dev = u.device
     vels = (u, v, w)
@@ -210,7 +213,9 @@ def build_viscosity_system(u, v, w, volumes: VolumeGrids, states: FaceStates,
             grid, o = vol_spec[key]
             any_vol = any_vol | (shifted_read(getattr(volumes, grid), o,
                                               shape) > 0)
-        rows = _row_range_mask(shape, cfg, dev) & ~solids[comp] & any_vol
+        in_range = (_row_range_mask(shape, cfg, dev) if row_masks is None
+                    else row_masks[comp])
+        rows = in_range & ~solids[comp] & any_vol
         zero = torch.zeros(shape, dtype=torch.float32, device=dev)
         in_mat.append(rows)
         diags.append(torch.where(rows, diag, zero))

@@ -483,3 +483,88 @@ def test_v_cycle_equals_the_plain_recursion(cuda, dtype, backend, stored):
         got = mg.v_cycle(hier, b, 1, 1, cfg.mg_omega, cfg.mg_coarse_scale)
         assert torch.equal(got, smoke._v_cycle_plain(
             hier, b, cfg.mg_omega, cfg.mg_coarse_scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_slabs", [2, 4])
+def test_sharded_pallas_step_on_the_card_matches_the_cpu(cuda, n_slabs):
+    """One frame of the bench scene at 64^3 in n_slabs slabs on "pallas",
+    on the card (K5, K2 and its one-grid form once per slab and substep)
+    and on the CPU's plain versions from the same state: equal substeps
+    and overflow, iterations within 1, the particle multisets within
+    5e-4, the owned rows of u within 5e-4."""
+    from flipviscosity3d_torch.core.state import state_from_numpy
+    from flipviscosity3d_torch.core.state import state_to_numpy
+    from flipviscosity3d_torch.parallel import shard_step as sh
+    from flipviscosity3d_torch.parallel.collectives import LocalGroup
+
+    sim = smoke.bench_scene("cpu", 64)
+    cfg, arrays = sim.cfg, state_to_numpy(sim.state)
+    out = {}
+    for dev in ("cpu", cuda):
+        state = state_from_numpy(arrays, dev)
+        spec = sh.make_spec(cfg, n_slabs, n_particles=state.pos.shape[0])
+        group = LocalGroup(n_slabs, dev)
+        ss = sh.shard_simstate(state, cfg, spec, group)
+        smoke.reset_launch_counts()
+        ss, d = sh.advance_sharded(ss, smoke.DT, cfg, spec, group)
+        out[torch.device(dev).type] = (ss, d, smoke.launch_counts())
+    (c_ss, c_d, _), (g_ss, g_d, launches) = out["cpu"], out["cuda"]
+    assert g_d.substeps == c_d.substeps
+    assert g_d.bucket_overflow == c_d.bucket_overflow
+    assert abs(g_d.pressure_iterations - c_d.pressure_iterations) <= 1
+    assert abs(g_d.viscosity_iterations - c_d.viscosity_iterations) <= 1
+    for k, v in launches.items():
+        want = n_slabs * g_d.substeps if k in smoke.SHARDED_KERNELS else 0
+        assert v == want, k
+    g_pos, _ = sh.gather_particles(g_ss)
+    c_pos, _ = sh.gather_particles(c_ss)
+    assert g_pos.shape == c_pos.shape
+    assert abs(torch.tensor(g_pos).sort(0).values
+               - torch.tensor(c_pos).sort(0).values).max() <= 5e-4
+    assert abs(torch.tensor(sh.gather_grid_u(g_ss, spec))
+               - torch.tensor(sh.gather_grid_u(c_ss, spec))).max() <= 5e-4
+
+
+@pytest.mark.gpu
+def test_slab_kernels_match_plain_versions_on_slab_shapes(cuda):
+    """K5 and K2 at a slab's local shape (B + 2H = 48 rows of a 64^3 grid
+    in 2 slabs), on a stream in random order with dead rows keyed as the
+    slab pipeline keys them, so that a pass-A budget of 2 tiles a chunk
+    leaves most particles uncovered: K5's sums within rtol 1e-5 of its plain version, table and
+    counts equal; K2 with two grids (u cropped to 48 rows and padded back
+    with zeros) and with one torch.equal to gather_mac_ref."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    shape, dx = (48, 64, 64), 1.0 / 64
+    n = 200_000
+    lo = torch.tensor([0.02, 0.02, 0.02], device=cuda)
+    hi = torch.tensor([0.98 * 48 / 64, 0.5, 0.98], device=cuda)
+    pos = lo + (hi - lo) * torch.rand((n, 3), generator=gen, device=cuda)
+    vel = torch.randn((n, 3), generator=gen, device=cuda)
+    alive = torch.rand(n, generator=gen, device=cuda) > 0.2
+    key = torch.where(alive, pp.key_of_position(pos, dx, shape),
+                      torch.full((n,), torch.iinfo(torch.int32).max,
+                                 dtype=torch.int32, device=cuda))
+    plan = pp.plan_pass_a(key, shape, budget=2, factor=1.2)
+    covered = int(plan.covered.sum())
+    assert 0 < covered < int(alive.sum())
+    for terms in (3, 1, 2):
+        sums, table, counts = pp.scatter_p2g_table_stale(
+            pos, vel, key, plan, shape, dx, 12, terms=terms)
+        rs, rt, rc = pp.scatter_p2g_table_stale_ref(
+            pos, vel, key, plan.covered, shape, dx, 12, terms=terms)
+        scale = float(rs.abs().max())
+        assert float((sums - rs).abs().max()) <= 1e-5 * scale, terms
+        assert torch.equal(table, rt) and torch.equal(counts, rc), terms
+    faces = ((48, 64, 64), (48, 65, 64), (48, 64, 65))
+    grids = [[torch.randn(fs, generator=gen, device=cuda) for fs in faces]
+             for _ in range(2)]
+    for g in grids:
+        g[0] = torch.nn.functional.pad(g[0], (0, 0, 0, 0, 0, 1))
+    px, py, pz = (pos[:, a].contiguous() for a in range(3))
+    for n_grids in (1, 2):
+        gs = [[g[c] for g in grids[:n_grids]] for c in range(3)]
+        got = pp.gather_mac(px, py, pz, key, *gs, dx, shape)
+        want = pp.gather_mac_ref(px, py, pz, key, *gs, dx, shape)
+        assert torch.equal(got, want), n_grids
