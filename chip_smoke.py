@@ -42,10 +42,10 @@
    just before it and read just after:
    - "bench": the bench scene under BENCH_DEFAULT's engine, "pallas", with
      its default variants (pass A "sort", pass B "plan", pushback
-     "gather"), one warm frame and 5 frames of dt = 0.01;
+     "gather"), one warm frame and 3 frames of dt = 0.01;
    - "stale": the same pool lifted by 0.43 in y, so that it falls, under
      pass A "stale", pass B "plan" and pushback "kernel", one warm frame
-     and 5 frames of dt = 0.04 (several substeps per frame, so that stale
+     and 3 frames of dt = 0.04 (several substeps per frame, so that stale
      substeps occur);
    - "bench_sort": the bench run with pass B "sort" (a re-sort by
      midpoint key instead of the midpoint plan);
@@ -58,7 +58,7 @@
    launch counts, in all and per substep (over the warm frame's substeps
    too). A path fails if one of its kernels was never launched or
    a residual missed its tolerance. Then the bench run on the JAX
-   package's two other engines, one warm frame and 5 timed each:
+   package's two other engines, one warm frame and 3 timed each:
    - "table": particle_engine "table" (the JAX default), whose substeps
      launch only the V-cycle's kernels (K3, K4) and must launch them;
    - "stream": particle_engine "stream", the same;
@@ -73,6 +73,21 @@
      line runs it: its checks at 16^3, then the sort, K11, K12 and its two
      PyTorch baselines timed at 128^3; fails if a check failed or K11 or
      K12 never launched;
+   - "scripts": the single-device measurement and readiness modules of
+     flipviscosity3d_torch/scripts, each run() at the JAX scripts' defaults
+     (smoke.SCRIPT_RUNS), one JSON line per module with the launch counts
+     set to 0 just before it and read just after: profile_substep (128^3),
+     pallas_engine_probe (128^3, 4,100,000 particles), mg_pallas_bench and
+     mg_profile (128^3, chains of SCRIPT_K = 20, not 50), solver_microbench and
+     precond_experiment (64^3), particle_microbench (128^3, 4,111,806
+     particles), readiness256 (256^3, 500,000 particles) and readiness512
+     (RES 512, ISIZE 256 on 4 slab ranks: config 5's exact slab shape);
+     fails if a module raised or is not ok, if a kernel the module must
+     launch (K1, K2, its one-grid form, K5, K6 in the engine probe; the
+     folded K1, K2, its one-grid form, K3 and K4 in readiness256; K3 and
+     K4 in the V-cycle and solver modules and profile_substep's full
+     advance) never launched, or if a readiness module lost a particle or
+     printed a value that is not finite;
    - "bench_bf16": the bench run again under pallas_gather_dtype "bf16";
      fails unless its residuals hold and its final positions differ from
      those of "bench", the same run under "f32".
@@ -83,7 +98,7 @@
    cells, migration, uncovered particles per slab, launches and
    collectives per substep, the path's line with substeps/s beside the
    "bench" run's and peak memory (smoke.run_sharded_path):
-   - "sharded": engine "pallas", one warm frame and 3 frames of dt = 0.01;
+   - "sharded": engine "pallas", one warm frame and 2 frames of dt = 0.01;
      the warm frame is held against the single-device advance from the
      same state (equal substeps, iterations within 1 per solve, sorted
      positions and the owned rows of u within 5e-4); every frame must keep
@@ -92,7 +107,7 @@
      gather_mac_one_grid once per slab and substep and no other kernel
      (the V-cycle's gathered tail would run K3 / K4, but at these grids it
      is a single level, solved by its dense inverse);
-   - "sharded_stream": the same on engine "stream", 2 frames, which must
+   - "sharded_stream": the same on engine "stream", 1 frame, which must
      launch no kernel at all;
    - "sharded_dist": one frame on a DistGroup of world size 1 over NCCL (a
      FileStore under build/) against a LocalGroup of one rank from the
@@ -124,11 +139,17 @@
    - "table256": the bench scene at 256^3 from a scene file whose config
      names no particle engine and a bucket_capacity of 12 (what
      scenes/highres_bunny.json gives, the pool standing in for its mesh),
-     one warm frame and 2 frames of dt = 0.01; fails unless the run's
+     one warm frame and 1 frame of dt = 0.01; fails unless the run's
      config says "table" (the default) and K3 and K4 ran;
    - "sharded256": the bench scene at 256^3 in 4 slabs on "pallas" through
      advance_sharded, one warm frame and 1 frame, with the checks of
      "sharded" but the single-device comparison; prints its peak memory.
+Cuts made to keep the run under 500 s once the scripts phase (~180 s) came
+in: the V-cycle modules' chains there 50 -> 20 (SCRIPT_K), then timed
+frames of the earlier paths: the 128^3 paths (bench, stale, bench_sort,
+table, stream, bench_bf16) 5 -> 3 (FRAMES), sharded 3 -> 2, sharded_stream
+2 -> 1 (SHARDED_PATHS), table256 2 -> 1. No shape was cut.
+
 6. Prints the card line, one JSON line of kernel records, and as its last
    line {"ok": true, "device": {...}} when every check held; otherwise
    prints what failed and exits 1.
@@ -143,13 +164,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RES = 128
-FRAMES = 5
+FRAMES = 3
 TERMS2_FRAMES = 2
 LARGE_RES = 256
 SCENE_DIR = os.path.join(ROOT, "build", "smoke_scenes")
 TABLE256 = dict(particle_engine=None, bucket_capacity=12)
 # the slab pipeline's paths at RES: (name, particle engine, timed frames)
-SHARDED_PATHS = (("sharded", "pallas", 3), ("sharded_stream", "stream", 2))
+# the V-cycle modules' chains in the scripts phase (50 in the JAX scripts)
+SCRIPT_K = 20
+SHARDED_PATHS = (("sharded", "pallas", 2), ("sharded_stream", "stream", 1))
 RECORD_KEYS = ("name", "route", "source", "replaces", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -352,6 +375,10 @@ def main() -> int:
     report_checks("hw_check", result, result["modules"])
     result = smoke.run_proto("cuda", RES, log=lambda _: None)
     report_checks("proto", result, [result["result"]])
+    runs = tuple((m, {**a, "k": SCRIPT_K} if "k" in a else a, kernels)
+                 for m, a, kernels in smoke.SCRIPT_RUNS)
+    result = smoke.run_scripts("cuda", runs, log=lambda _: None)
+    report_checks("scripts", result, result["modules"])
 
     result = smoke.run_gather_dtype_path("cuda", RES, FRAMES, bench_pos)
     del bench_pos
@@ -400,7 +427,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     result = smoke.run_scene_path("cuda", SCENE_DIR, "table256", LARGE_RES,
-                                  2, **TABLE256)
+                                  1, **TABLE256)
     del result["run"]
     print(json.dumps({"path": "table256", "engine": result["engine"],
                       "scene_names_an_engine": False}), flush=True)

@@ -1,12 +1,26 @@
-"""The port's hardware checks of the tile-major column path, counterparts
-of the JAX package's scripts/pallas_hw_check.py, gather_smem_check.py and
-gather_perf_probe.py. Each is a module with a `run(device, ...)` function
-that returns its results as a dict with an "ok" key, and runs as
+"""The port's counterparts of the JAX package's scripts/: the hardware
+checks of the tile-major column path (pallas_hw_check, gather_smem_check,
+gather_perf_probe), the round-1 prototype (pallas_particle_proto), the slab
+pipeline's collective audit (shard_collectives), the single-device
+measurement scripts (profile_substep, pallas_engine_probe, mg_pallas_bench,
+mg_profile, solver_microbench, precond_experiment, particle_microbench),
+the readiness checks of BASELINE configs 4 and 5 (readiness256,
+readiness512) and the scene driver (run_scene). Each but run_scene is a
+module with a `run(device, ...)` function that returns its results as a
+dict with an "ok" key, and runs as
 
     python -m flipviscosity3d_torch.scripts.<name> [--device cuda|cpu]
 
 on the card by default (it raises without one); `--device cpu` runs the
-kernels' plain PyTorch versions, at sizes the caller keeps small.
+kernels' plain PyTorch versions, at sizes the caller keeps small. The JAX
+scripts' environment knobs are flags with the same defaults.
+
+The measurement modules give each stage a row (`stage`): `wall_ms` from
+time_ms (CUDA-event batches, the host's launch gaps included, as the JAX
+scripts' synced host wall includes its dispatch) and `device_ms` from
+smoke.device_ms (the batch queued behind a head start, the host left out;
+a stage that reads a value on the host, as every solve does, cannot leave
+it out). On the CPU `device_ms` is None: not measured.
 """
 
 from __future__ import annotations
@@ -43,13 +57,13 @@ def card() -> str:
 
 
 def time_ms(fn, dev="cuda", batch_ms: float = 50.0,
-            repeats: int = 3) -> float:
-    """Milliseconds of one fn() call: after two warm-up calls, the median
+            repeats: int = 3, warmup: int = 2) -> float:
+    """Milliseconds of one fn() call: after `warmup` calls, the median
     over `repeats` batches, each of as many back-to-back calls as fill about
     `batch_ms` (1 to 200), divided by that count. A batch is timed by a pair
     of CUDA events on the card and by the host clock on the CPU."""
     on_card = torch.device(dev).type == "cuda"
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     if on_card:
         torch.cuda.synchronize()
@@ -85,16 +99,48 @@ def pool_keys(n: int, res: int, gen: torch.Generator, dev) -> torch.Tensor:
     return torch.sort(pp.key_of_position(pos, 1.0 / res, (res,) * 3)).values
 
 
-def main(run, doc: str, argv=None, **sizes) -> int:
-    """Command line of one check: --device and one integer flag per entry
-    of `sizes` (its defaults); prints run()'s result as one JSON line with
-    the card beside it and returns 0 if it is ok, else 1."""
+def stage(name: str, fn, dev, log=print, repeats: int = 3, **extra):
+    """Run fn() once, then time it -> (row, the first call's result). The
+    row is {"stage": name, "wall_ms", "device_ms", **extra}: wall_ms by
+    time_ms, device_ms by smoke.device_ms over batches of about 50 ms
+    (None on the CPU)."""
+    out = fn()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time_ms(fn, dev, repeats=repeats, warmup=0)
+    device = None
+    if on_card:
+        from ..smoke import device_ms
+
+        count = max(1, min(10, int(50.0 / max(wall, 1e-3))))
+        device = device_ms(fn, count=count, repeats=repeats)
+    row = {"stage": name, "wall_ms": wall, "device_ms": device, **extra}
+    dev_s = "not measured" if device is None else f"{device:9.3f} ms"
+    log(f"{name:36s} wall {wall:9.3f} ms  device {dev_s}")
+    return row, out
+
+
+def main(run, doc: str, argv=None, **flags) -> int:
+    """Command line of one module: --device and one flag per entry of
+    `flags` (named without a trailing "_"), its default value (an int, float, str or bool flag) or a
+    (type, default) pair for a flag whose default is None; prints run()'s
+    result as one JSON line with the card beside it and returns 0 if it is
+    ok, else 1."""
     p = argparse.ArgumentParser(
         description=doc, formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    for name, default in sizes.items():
-        p.add_argument("--" + name.replace("_", "-"), type=int,
-                       default=default)
+    for name, default in flags.items():
+        flag = "--" + name.rstrip("_").replace("_", "-")
+        if isinstance(default, bool):
+            p.add_argument(flag, dest=name, action="store_true",
+                           default=default)
+        elif isinstance(default, tuple):
+            p.add_argument(flag, dest=name, type=default[0],
+                           default=default[1])
+        else:
+            p.add_argument(flag, dest=name, type=type(default),
+                           default=default)
     args = vars(p.parse_args(argv))
     dev = resolve_device(args.pop("device"))
     result = run(dev, **args)

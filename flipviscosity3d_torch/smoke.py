@@ -58,6 +58,7 @@ import math
 import os
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -73,7 +74,16 @@ from .ops import pallas_mg as pm
 from .ops import pallas_particles as pp
 from .scripts import gather_perf_probe as probe
 from .scripts import gather_smem_check, pallas_hw_check, time_ms
+from .scripts import mg_pallas_bench, mg_profile, pallas_engine_probe
 from .scripts import pallas_particle_proto as proto
+from .scripts import (
+    particle_microbench,
+    precond_experiment,
+    profile_substep,
+    readiness256,
+    readiness512,
+    solver_microbench,
+)
 from .solvers import multigrid as mg
 
 # (wrapper, source, the TPU kernel it replaces)
@@ -1393,6 +1403,83 @@ def run_hw_check(device, res: int = 128, particles: int = BENCH_PARTICLES,
                      for k in HW_CHECK_KERNELS if launches[k] == 0]
     return {"modules": modules, "launches": launches, "wall_s": wall,
             "path_kernels": list(HW_CHECK_KERNELS), "failures": failures}
+
+
+_VCYCLE = ("mg_down", "mg_up")
+# The scripts phase (run_scripts): the single-device measurement and
+# readiness modules of flipviscosity3d_torch/scripts in the order they were
+# ported, each as (module, its run() arguments at the JAX scripts'
+# defaults, the kernels it must launch on the card). readiness512 runs at
+# ISIZE 256 on 4 ranks: config 5's exact slabs, four of its eight.
+SCRIPT_RUNS = (
+    (profile_substep, dict(res=128), _VCYCLE),
+    (pallas_engine_probe, dict(n=4_100_000, res=128),
+     ("scatter_p2g_table", "gather_mac", "gather_mac_one_grid",
+      "scatter_p2g_table_stale", "gather_rows8")),
+    (mg_pallas_bench, dict(res=128, k=50), _VCYCLE),
+    (mg_profile, dict(res=128, k=50), _VCYCLE),
+    (solver_microbench, dict(res=64), _VCYCLE),
+    (precond_experiment, dict(res=64), _VCYCLE),
+    (particle_microbench, dict(res=128, np_=BENCH_PARTICLES), ()),
+    (readiness256, dict(res=256, npart=500_000),
+     ("scatter_p2g_table_folded", "gather_mac", "gather_mac_one_grid")
+     + _VCYCLE),
+    (readiness512, dict(res=512, npart=2_000_000, ndev=4, isize=256), ()),
+)
+
+
+def _script_name(module) -> str:
+    return module.__name__.rsplit(".", 1)[-1]
+
+
+def run_scripts(device, runs=SCRIPT_RUNS, log=print) -> dict:
+    """The scripts phase: each module's run(device, **arguments) of `runs`
+    in turn, its launch counts set to 0 just before and read just after,
+    one line per module (its result, wall seconds and the counts it
+    launched). A module fails if it raises, if its result is not ok, or, on
+    the card, if one of its kernels never launched; the readiness modules
+    also if a particle was lost or a value is not finite."""
+    dev = torch.device(device)
+    quiet = lambda line: None   # noqa: E731
+    lines, failures = [], []
+    total = {fn.__name__: 0 for fn, _, _ in KERNELS}
+    t_all = time.perf_counter()
+    for module, args, kernels in runs:
+        name = _script_name(module)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            result = module.run(dev, **args, log=quiet)
+        except Exception:   # one module's fault must not hide the others'
+            result = {"ok": False, "error": traceback.format_exc()}
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        line = {"module": name, "args": args, "wall_s": wall,
+                "launches": {k: v for k, v in counts.items() if v},
+                **result}
+        log(json.dumps(line))
+        lines.append(line)
+        if not result["ok"]:
+            failures.append(f"{name} failed: {result.get('error', '')}")
+        if dev.type == "cuda":
+            failures += [f"{name}: kernel {k} was never launched"
+                         for k in kernels if counts[k] == 0]
+        if name == "readiness512" and "alive" in result and (
+                result["alive"] != args["npart"] or not result["finite"]):
+            failures.append(f"{name} lost a particle or a position is not "
+                            "finite")
+        if name == "readiness256" and "com_y" in result and not (
+                result["finite"] and math.isfinite(result["com_y"])):
+            failures.append(f"{name} printed a value that is not finite")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return {"modules": lines, "launches": total,
+            "wall_s": time.perf_counter() - t_all,
+            "path_kernels": sorted({k for _, _, ks in runs for k in ks}),
+            "failures": failures}
 
 
 # ---------------------------------------------------------------------------
