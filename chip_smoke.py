@@ -90,7 +90,37 @@
      printed a value that is not finite;
    - "bench_bf16": the bench run again under pallas_gather_dtype "bf16";
      fails unless its residuals hold and its final positions differ from
-     those of "bench", the same run under "f32".
+     those of "bench", the same run under "f32";
+   - "stream_repeat" (smoke.run_stream_repeat): the bench scene on the
+     "stream" engine four times from one state, one warm and 2 timed
+     frames each, in turns: with the stream's sums added by index_add_
+     (the form before they were made repeatable), twice as the engine
+     adds them, once more with index_add_, each run's substeps/s printed;
+     the two forms of the sums alone timed on the scene's stream (108
+     sums a particle); then the slab pipeline on "stream" in 4 slabs
+     twice from one state, 1 frame each; fails unless the two runs of
+     each with the engine's sums are torch.equal (positions, velocities,
+     u, v, w; alive per slab) with equal integer diagnostics;
+   - "placed" (smoke.run_placed_path): the bench scene, its particles
+     trimmed to 4,111,260 (shard_state refuses a count that 4 does not
+     divide, as jax.device_put does), placed on a LocalGroup of 4
+     rank-threads (parallel/sharding.shard_state: the 128 i-rows split,
+     the 129-row grids replicated, the particles split) and advanced by
+     advance_placed, one warm and one timed frame,
+     each torch.equal to the single-device advance from the same state
+     with equal diagnostics; fails otherwise or if K1-K4 never launched in
+     the placed frames;
+   - "dryrun" (smoke.run_dryrun): graft_entry.dryrun_multichip(4) (the
+     slab pipeline at 24^3 in 4 slabs with a +x drift, which must migrate
+     particles and lose none, then the placed step at 16^3) and
+     graft_entry.entry()'s frame once;
+   - "hw_blitz": scripts/hw_blitz.py at 64^3 with 1 timed bench frame,
+     every step (the kernel gate, the devices, the engine probe, the six
+     pallas bench variants, the solver microbench, bench on "table", the
+     winner); fails if a step failed, which on the card includes a step
+     whose kernels did not launch (K1, K7, K8 in the gate; K1, K2, K5, K6
+     in the probe; K1-K4 in 3, 3a, 3e, 3f; K1-K4 and K6 in 3b; K5 and
+     K2-K4 in 3c; K3, K4 in 3d and 4).
    Then the slab pipeline (flipviscosity3d_torch/parallel) on the bench
    scene in 4 slabs (B = 32, H = 8), MG-PCG for both solves, through
    advance_sharded on a LocalGroup of 4 rank-threads on the card, each
@@ -148,7 +178,10 @@ Cuts made to keep the run under 500 s once the scripts phase (~180 s) came
 in: the V-cycle modules' chains there 50 -> 20 (SCRIPT_K), then timed
 frames of the earlier paths: the 128^3 paths (bench, stale, bench_sort,
 table, stream, bench_bf16) 5 -> 3 (FRAMES), sharded 3 -> 2, sharded_stream
-2 -> 1 (SHARDED_PATHS), table256 2 -> 1. No shape was cut.
+2 -> 1 (SHARDED_PATHS), table256 2 -> 1. No shape was cut. The four phases
+after bench_bf16 add about a minute and cut nothing; the blitz runs at
+64^3 here (its full 128^3 form is `python3 -m
+flipviscosity3d_torch.scripts.hw_blitz`).
 
 6. Prints the card line, one JSON line of kernel records, and as its last
    line {"ok": true, "device": {...}} when every check held; otherwise
@@ -173,6 +206,9 @@ TABLE256 = dict(particle_engine=None, bucket_capacity=12)
 # the V-cycle modules' chains in the scripts phase (50 in the JAX scripts)
 SCRIPT_K = 20
 SHARDED_PATHS = (("sharded", "pallas", 2), ("sharded_stream", "stream", 1))
+# the placed path's and the dry run's rank-threads; the blitz's grid
+PLACED_RANKS = 4
+BLITZ_RES = 64
 RECORD_KEYS = ("name", "route", "source", "replaces", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -386,6 +422,46 @@ def main() -> int:
         "path": "bench_bf16",
         "max_abs_diff_from_f32": result.get("max_abs_diff_from_f32")}))
     report("bench_bf16", result)
+
+    result = smoke.run_stream_repeat("cuda", RES, log=lambda _: None)
+    print(json.dumps({"path": "stream_repeat", **result, "card": card}),
+          flush=True)
+    failures.extend(f"path stream_repeat: {f}" for f in result["failures"])
+    torch.cuda.empty_cache()
+
+    result = smoke.run_placed_path("cuda", RES, n_ranks=PLACED_RANKS,
+                                   log=lambda line: print(line, flush=True))
+    for k in launches:
+        launches[k] += result["launches"][k]
+    print(json.dumps({"path": "placed", **result, "card": card}), flush=True)
+    failures.extend(f"path placed: {f}" for f in result["failures"])
+    torch.cuda.empty_cache()
+
+    result = smoke.run_dryrun("cuda", PLACED_RANKS,
+                              log=lambda line: print(line, flush=True))
+    print(json.dumps({"path": "dryrun", **result, "card": card}), flush=True)
+    failures.extend(f"path dryrun: {f}" for f in result["failures"])
+    torch.cuda.empty_cache()
+
+    from flipviscosity3d_torch.scripts import hw_blitz
+    t_blitz = time.perf_counter()
+    blitz_launches = dict.fromkeys(launches, 0)
+
+    def blitz_line(line):
+        step = json.loads(line)
+        for k, v in step.get("launches", {}).items():
+            blitz_launches[k] += v
+        step.get("result", {}).pop("rows", None)
+        print(json.dumps({"hw_blitz": step, "card": card}), flush=True)
+
+    result = hw_blitz.run("cuda", res=BLITZ_RES, frames=1, log=blitz_line)
+    for k in launches:
+        launches[k] += blitz_launches[k]
+    print(json.dumps({"path": "hw_blitz", **result,
+                      "wall_s": time.perf_counter() - t_blitz,
+                      "launches": blitz_launches, "card": card}), flush=True)
+    failures.extend(f"path hw_blitz: step {s} failed" for s in result["failed"])
+    torch.cuda.empty_cache()
 
     result = smoke.run_cli64("cuda", SCENE_DIR)
     print(json.dumps({

@@ -2,15 +2,18 @@
 cell-sorted particles, and row gathers keyed by per-particle cells.
 
 Counterpart of flipviscosity3d_tpu/ops/stream.py. One stable sort by
-i-major home cell per substep; per-cell sums and mins of per-particle
-quantities are scatter reductions over the sorted keys (`index_add_` and
-`scatter_reduce_("amin")`), and per-particle samples gather rows of
-stacked per-cell columns. Every particle takes part in every transfer: the
-stream engine has no capacity and no overflow.
+i-major home cell per substep; per-cell sums of per-particle quantities
+add each cell's run of the sorted stream in stream order
+(`torch.segment_reduce` over the run starts), per-cell mins are a scatter
+reduction over the sorted keys (`scatter_reduce_("amin")`, which no order
+changes), and per-particle samples gather rows of stacked per-cell columns.
+Every particle takes part in every transfer: the stream engine has no
+capacity and no overflow.
 
-On the card `index_add_` adds with atomics, so the order of each cell's
-sum changes from run to run and the stream engine's results are not
-bit-repeatable there; the mins are.
+Each cell's sum is added in one fixed order, first particle of the run to
+last, on the card as on the CPU, so two runs from one state give the same
+bits. That is also the order in which XLA's CPU scatter of the JAX
+package adds them.
 """
 
 from __future__ import annotations
@@ -82,19 +85,23 @@ def segment_reduce(stream: ParticleStream, sums: Sequence[torch.Tensor],
                    mins: Sequence[torch.Tensor], min_default: float):
     """Per-cell sums and mins of per-particle (N,) float32 quantities over
     the sorted stream -> (sum_cells, min_cells), lists of (n_cells,)
-    tensors; empty cells reduce to 0 / min_default. One (N, S) index_add_
-    and one (N, M) scatter-min into a table with a guard row, so that the
-    rows of dead particles (key == n_cells) land there and are dropped."""
+    tensors; empty cells reduce to 0 / min_default. One (N, S) segmented
+    sum over the cells' runs, each added in stream order: the runs end at
+    starts[n_cells], so the rows of dead particles (key == n_cells), which
+    sort last, belong to none. One (N, M) scatter-min into a table with a
+    guard row, where the dead rows land and are dropped."""
     n_cells = stream.counts.shape[0]
     key = stream.key
     dev = key.device
     sum_cells, min_cells = [], []
     if sums:
         stacked = torch.stack(list(sums), dim=-1)
-        out = torch.zeros((n_cells + 1, len(sums)), device=dev)
-        out.index_add_(0, key, stacked)
+        # starts[0] is 0 (keys are >= 0) and starts is non-decreasing, the
+        # checks `unsafe` skips (they would read the card)
+        out = torch.segment_reduce(stacked, "sum", offsets=stream.starts,
+                                   axis=0, unsafe=True)
         del stacked
-        sum_cells = list(out[:n_cells].unbind(dim=1))
+        sum_cells = list(out.unbind(dim=1))
     if mins:
         stacked = torch.stack(list(mins), dim=-1)
         out = torch.full((n_cells + 1, len(mins)), min_default,

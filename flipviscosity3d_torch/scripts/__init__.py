@@ -5,9 +5,11 @@ pipeline's collective audit (shard_collectives), the single-device
 measurement scripts (profile_substep, pallas_engine_probe, mg_pallas_bench,
 mg_profile, solver_microbench, precond_experiment, particle_microbench),
 the readiness checks of BASELINE configs 4 and 5 (readiness256,
-readiness512) and the scene driver (run_scene). Each but run_scene is a
-module with a `run(device, ...)` function that returns its results as a
-dict with an "ok" key, and runs as
+readiness512), the headline benchmark (bench, bench.py's counterpart), the
+hardware blitz over them (hw_blitz, scripts/hw_blitz.sh's) and the scene
+driver (run_scene). Each but run_scene is a module with a
+`run(device, ...)` function that returns its results as a dict with an
+"ok" key, and runs as
 
     python -m flipviscosity3d_torch.scripts.<name> [--device cuda|cpu]
 

@@ -42,6 +42,12 @@ plain scatters in slabs of particles, to fit the card). `run_cli64`
 drives the CLI at its default resolution with exports, checkpoints and a
 resumed second run.
 
+`run_stream_repeat` runs the "stream" engine twice from one state (and
+the slab pipeline's "stream" path twice), which must give equal bits, with
+the sums' earlier index_add_ form timed beside it; `run_placed_path` holds
+advance_placed (parallel/sharding.py) against the single-device advance;
+`run_dryrun` runs graft_entry's dry run and entry().
+
 `run_sharded_path` drives the slab pipeline (parallel/shard_step.py) on
 the bench scene in slabs, on a LocalGroup of rank-threads, and holds its
 warm frame against the single-device advance from the same state;
@@ -52,6 +58,7 @@ LocalGroup of one rank; `profile_sharded` traces sharded frames.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -216,13 +223,13 @@ def pool_mesh(res: int, lift: float = 0.0):
 
 
 def bench_scene(device, res: int, lift: float = 0.0,
-                particle_engine: str = "pallas",
+                particle_engine: str = "pallas", bucket_capacity: int = 16,
                 **overrides) -> FluidSimulation:
     """bench.py's scene (bench.py:35-100) at res^3, the pool's box moved up
     by `lift`, on `particle_engine` (bench.py's, "pallas", unless named),
     with config `overrides`."""
     sim = FluidSimulation(device)
-    sim.initialize(res, res, res, 1.0 / res, bucket_capacity=16,
+    sim.initialize(res, res, res, 1.0 / res, bucket_capacity=bucket_capacity,
                    particle_engine=particle_engine, **overrides)
     sim.add_liquid(pool_mesh(res, lift))
     sim.set_viscosity(5.0)
@@ -1929,3 +1936,275 @@ def run_sharded_dist(device, res: int, store_path: str, dt: float = DT,
             "iterations": [d_d.pressure_iterations,
                            d_d.viscosity_iterations],
             "failures": failures}
+
+
+# ---------------------------------------------------------------------------
+# repeatability, the placed state, the dry run, the blitz
+# ---------------------------------------------------------------------------
+
+_INT_DIAGS = ("substeps", "pressure_iterations", "viscosity_iterations",
+              "bucket_overflow", "liquid_cells", "stale_substeps",
+              "uncovered_pass_a", "uncovered_pass_b", "uncovered_pushback")
+
+
+def state_diffs(a, b) -> list:
+    """The SimState fields (solid ones as solid.<name>) where a and b are
+    not torch.equal."""
+    from .core.state import _SOLID_FIELDS, _STATE_FIELDS
+
+    out = [k for k in _STATE_FIELDS
+           if not torch.equal(getattr(a, k), getattr(b, k))]
+    return out + [f"solid.{k}" for k in _SOLID_FIELDS
+                  if not torch.equal(getattr(a.solid, k),
+                                     getattr(b.solid, k))]
+
+
+def _int_diag_diffs(a, b, names=_INT_DIAGS) -> list:
+    return [f"{k} {getattr(a, k)} against {getattr(b, k)}" for k in names
+            if getattr(a, k) != getattr(b, k)]
+
+
+def segment_reduce_index_add(stream, sums, mins, min_default):
+    """The stream engine's segment_reduce as it was before its sums were
+    made repeatable: one (N, S) index_add_ into a table with a guard row
+    (atomics on the card, so each cell's order of addition changes from
+    run to run). Kept to time the repair against, never on a path."""
+    from .ops.stream import segment_reduce
+
+    n_cells = stream.counts.shape[0]
+    out = torch.zeros((n_cells + 1, len(sums)), device=stream.key.device)
+    out.index_add_(0, stream.key, torch.stack(list(sums), dim=-1))
+    _, min_cells = segment_reduce(stream, [], mins, min_default)
+    return list(out[:n_cells].unbind(dim=1)), min_cells
+
+
+@contextlib.contextmanager
+def _index_add_sums():
+    from .ops import stream_transfers
+
+    kept = stream_transfers.segment_reduce
+    stream_transfers.segment_reduce = segment_reduce_index_add
+    try:
+        yield
+    finally:
+        stream_transfers.segment_reduce = kept
+
+
+def _frames_from(state, cfg, frames: int, dev, dt: float = DT):
+    """One warm frame, then `frames` timed frames of core.step.advance from
+    `state` -> (final state, every frame's diagnostics, timed substeps/s)."""
+    from .core import step as tstep
+
+    diags = []
+    wall = 0.0
+    for frame in range(frames + 1):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, d = tstep.advance(state, dt, cfg)
+        _sync(dev)
+        if frame:
+            wall += time.perf_counter() - t0
+        diags.append(d)
+    timed = sum(d.substeps for d in diags[1:])
+    return state, diags, timed / wall if wall else None
+
+
+def _sums_times(state, cfg, dev, columns: int = 108) -> dict:
+    """CUDA-event ms of segment_reduce's sums and of the index_add_ form on
+    the stream of `state`'s particles with `columns` random sums a
+    particle (p2g_sdf_stream's 3 x 18 x 2)."""
+    from .ops.stream import segment_reduce, stream_sort
+
+    stream = stream_sort(state.pos, [], cfg.dx, cfg.grid_shape)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    sums = list(torch.randn((columns, state.pos.shape[0]), generator=gen,
+                            device=dev).unbind(0))
+    return {"rows": int(state.pos.shape[0]), "columns": columns,
+            "segment_ms": time_ms(lambda: segment_reduce(stream, sums, [],
+                                                         0.0), dev),
+            "index_add_ms": time_ms(lambda: segment_reduce_index_add(
+                stream, sums, [], 0.0), dev)}
+
+
+def run_stream_repeat(device, res: int, frames: int = 2,
+                      sharded_frames: int = 1,
+                      n_slabs: int = SHARDED_SLABS, log=print) -> dict:
+    """The "stream" engine's bench scene run four times from one state, one
+    warm frame and `frames` timed ones each, in turns: with the sums of
+    segment_reduce_index_add (the form before the repair), twice with
+    segment_reduce's, once more with index_add_; then the slab pipeline on
+    "stream" (n_slabs rank-threads) twice from one state for
+    `sharded_frames` frames. Fails unless the two runs of each with
+    segment_reduce give torch.equal states and equal integer diagnostics,
+    frame by frame. On the card it also times the two forms of the sums
+    alone (_sums_times)."""
+    from .parallel import shard_step as sh
+    from .parallel.collectives import LocalGroup
+
+    dev = torch.device(device)
+    sim = bench_scene(dev, res, particle_engine="stream")
+    cfg, state0 = sim.cfg, sim.state
+    del sim
+    failures = []
+    runs, before = [], []
+    for label in ("index_add", "first", "second", "index_add"):
+        if label == "index_add":
+            with _index_add_sums():
+                before.append(_frames_from(state0, cfg, frames, dev))
+            out = before[-1]
+        else:
+            runs.append(_frames_from(state0, cfg, frames, dev))
+            out = runs[-1]
+        log(json.dumps({"stream_run": label, "substeps_per_s": out[2],
+                        "frames": [d.as_dict() for d in out[1]]}))
+    diffs = state_diffs(runs[0][0], runs[1][0])
+    if diffs:
+        failures.append(f"stream: the two runs differ in {diffs}")
+    for i, (a, b) in enumerate(zip(runs[0][1], runs[1][1])):
+        failures += [f"stream frame {i}: {x}" for x in _int_diag_diffs(a, b)]
+    result = {
+        "particles": int(state0.pos.shape[0]),
+        "timed_frames": frames,
+        "substeps_per_s": [r[2] for r in runs],
+        "substeps_per_s_index_add": [r[2] for r in before],
+        "index_add_runs_differ_in": [state_diffs(runs[0][0], r[0])
+                                     for r in before],
+        "liquid_cells": [[d.liquid_cells for d in r[1]]
+                         for r in (*runs, *before)],
+    }
+    del runs, before
+    if dev.type == "cuda":
+        result["sums"] = _sums_times(state0, cfg, dev)
+        torch.cuda.empty_cache()
+
+    spec = sh.make_spec(cfg, n_slabs, n_particles=result["particles"])
+    outs = []
+    for _ in range(2):
+        group = LocalGroup(n_slabs, dev)
+        ss = sh.shard_simstate(state0, cfg, spec, group)
+        ds = []
+        for _ in range(sharded_frames):
+            ss, d = sh.advance_sharded(ss, DT, cfg, spec, group)
+            ds.append(d)
+        outs.append((ss, ds))
+    (sa, da), (sb, db) = outs
+    names = ("pos", "vel", "alive", "u", "v", "w")
+    diffs = [k for k in names if not torch.equal(getattr(sa, k),
+                                                 getattr(sb, k))]
+    if diffs:
+        failures.append(f"sharded_stream: the two runs differ in {diffs}")
+    for i, (a, b) in enumerate(zip(da, db)):
+        failures += [f"sharded_stream frame {i}: {x}" for x in
+                     _int_diag_diffs(a, b, _INT_DIAGS[:6] + (
+                         "migrated", "migration_lost"))]
+        if a.slab_uncovered != b.slab_uncovered:
+            failures.append(f"sharded_stream frame {i}: uncovered per slab "
+                            f"{a.slab_uncovered} against {b.slab_uncovered}")
+    result["sharded"] = {"slabs": n_slabs, "frames": sharded_frames,
+                         "substeps": [d.substeps for d in da],
+                         "liquid_cells": [[d.liquid_cells for d in ds]
+                                          for ds in (da, db)]}
+    result["failures"] = failures
+    return result
+
+
+def run_placed_path(device, res: int, frames: int = 1, n_ranks: int = 4,
+                    log=print) -> dict:
+    """The bench scene at res^3, its particles trimmed to a multiple of
+    n_ranks, placed on a LocalGroup of n_ranks rank-threads
+    (parallel/sharding.shard_state) and advanced by
+    advance_placed, one warm frame and `frames` timed ones; each frame is
+    held against core.step.advance from the same state (torch.equal state,
+    equal diagnostics). The launch counts cover the placed frames only
+    (set to 0 before each, read after). Fails on a difference or, on the
+    card, if a kernel of the bench path never launched."""
+    from .core import step as tstep
+    from .parallel.collectives import LocalGroup
+    from .parallel.sharding import advance_placed, shard_state, unplace
+
+    dev = torch.device(device)
+    sim = bench_scene(dev, res)
+    cfg, single = sim.cfg, sim.state
+    del sim
+    # shard_state refuses a particle count the ranks do not divide, as
+    # jax.device_put does; trim as tests/test_sharding.py does
+    keep = single.pos.shape[0] // n_ranks * n_ranks
+    single = single.replace(pos=single.pos[:keep], vel=single.vel[:keep])
+    group = LocalGroup(n_ranks, dev)
+    placed, placements = shard_state(single, group, cfg)
+    kinds = {}
+    for k, v in dataclasses.asdict(placements).items():
+        for name, p in (v.items() if k == "solid" else ((k, v),)):
+            kinds.setdefault(p[0], []).append(name)
+    failures, lines = [], []
+    totals = dict.fromkeys(launch_counts(), 0)
+    wall = substeps = 0
+    if dev.type == "cuda":   # the peak of both runs' frames, nothing before
+        torch.cuda.reset_peak_memory_stats()
+    for frame in range(frames + 1):
+        single, d1 = tstep.advance(single, DT, cfg)
+        reset_launch_counts()
+        group.reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        placed, d2 = advance_placed(placed, placements, DT, cfg, group)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        for k, v in counts.items():
+            totals[k] += v
+        if frame:
+            wall += secs
+            substeps += d2.substeps
+        diffs = state_diffs(unplace(placed, placements), single)
+        if diffs:
+            failures.append(f"frame {frame}: differs from the single "
+                            f"device in {diffs}")
+        if d1 != d2:
+            failures.append(f"frame {frame}: diagnostics {d2} against the "
+                            f"single device's {d1}")
+        line = {"frame": frame, "warm": frame == 0, "substeps": d2.substeps,
+                "pressure_iterations": d2.pressure_iterations,
+                "viscosity_iterations": d2.viscosity_iterations,
+                "equal_to_single_device": not diffs and d1 == d2,
+                "seconds": secs,
+                "collectives": group.counts(),
+                "launches": {k: v for k, v in counts.items() if v}}
+        log(json.dumps(line))
+        lines.append(line)
+    kernels = path_kernels(cfg)
+    if dev.type == "cuda":
+        failures += [f"kernel {k} was never launched" for k in kernels
+                     if totals[k] == 0]
+    return {"particles": int(single.pos.shape[0]), "ranks": n_ranks,
+            "placements": kinds, "frames": lines, "timed_frames": frames,
+            "substeps_per_s": substeps / wall if wall else None,
+            "peak_bytes": (torch.cuda.max_memory_allocated()
+                           if dev.type == "cuda" else None),
+            "launches": totals, "path_kernels": kernels,
+            "failures": failures}
+
+
+def run_dryrun(device, n_devices: int = 4, log=print) -> dict:
+    """graft_entry.dryrun_multichip(n_devices) and entry()'s fn once."""
+    from . import graft_entry
+
+    dev = torch.device(device)
+    failures = []
+    t0 = time.perf_counter()
+    try:
+        out = graft_entry.dryrun_multichip(n_devices, dev, log=log)
+    except Exception:   # reported with the other phases' failures
+        out = {"error": traceback.format_exc()}
+        failures.append(f"dryrun_multichip raised: {out['error']}")
+    fn, (state, dt) = graft_entry.entry(dev)
+    pos, u, substeps = fn(state, dt)
+    out["entry"] = {"particles": int(pos.shape[0]), "u": list(u.shape),
+                    "substeps": substeps,
+                    "finite": bool(torch.isfinite(pos).all())}
+    if not (substeps >= 1 and out["entry"]["finite"]):
+        failures.append(f"entry()'s frame: {out['entry']}")
+    out["wall_s"] = time.perf_counter() - t0
+    out["failures"] = failures
+    return out

@@ -215,3 +215,25 @@ def test_stream_substep_and_three_frames_match_jax(scene):
     assert [td.liquid_cells for td in tds] == [int(jd.liquid_cells)
                                                for jd in jds]
     assert all(td.bucket_overflow == 0 and td.plan_demand == 0 for td in tds)
+
+
+def test_segment_sums_add_each_run_in_stream_order():
+    """segment_reduce's sums equal, bit for bit, float32 sums that add each
+    cell's run in stream order (np.add.at adds in index order), with the
+    dead rows (key == n_cells) in no cell; two calls give the same bits."""
+    pos, vel = _particles(n=20000, seed=5)
+    _, ts = _streams(pos, vel, dead=77)
+    rng = np.random.default_rng(6)
+    sums = [rng.normal(size=pos.shape[0]).astype(np.float32)
+            for _ in range(4)]
+    got, _ = tstream.segment_reduce(ts, [torch.from_numpy(s) for s in sums],
+                                    [], 0.25)
+    again, _ = tstream.segment_reduce(
+        ts, [torch.from_numpy(s) for s in sums], [], 0.25)
+    key = ts.key.numpy()
+    live = key < N_CELLS
+    for s, g, a in zip(sums, got, again):
+        want = np.zeros(N_CELLS, np.float32)
+        np.add.at(want, key[live], s[live])
+        np.testing.assert_array_equal(g.numpy(), want)
+        assert torch.equal(g, a)
