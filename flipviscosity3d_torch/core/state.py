@@ -75,6 +75,12 @@ class StepDiagnostics:
     # the frame asked for (0 without plans); a plan's coverage is cut once
     # this exceeds its capacity (pallas_*_factor at the bench scene).
     plan_demand: float = 0.0
+    # The port's additions: the frame's reads from the device by site
+    # (utils/trace.read), and while a profiler records, its spans by name:
+    # {name: {"calls", "host_ms", "stream_ms"}} (utils/trace.Frame); empty
+    # otherwise.
+    host_reads: dict = dataclasses.field(default_factory=dict)
+    stages: dict = dataclasses.field(default_factory=dict)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -49,6 +49,7 @@ from ..ops.stream import stream_sort
 from ..ops.stream_transfers import pushback_from_corners, solid_pushback_at
 from ..solvers import pressure as psolver
 from ..solvers import viscosity as vsolver
+from ..utils import trace
 from .state import SimState, StepDiagnostics
 
 _P2G_EPS = 1e-9  # weight threshold (fluidsimulation.cpp:423-431)
@@ -81,67 +82,78 @@ def _grid_update(state: SimState, liquid_phi, p2g_sums, dt: float,
     """Between P2G and G2P: normalize the transfer, extrapolate, body force,
     viscosity, pressure projection, extrapolate, constrain
     (fluidsimulation.cpp:149-161)."""
-    solid = state.solid
-    fluid = liquid_phi < 0
-    borders = (face_borders_fluid_u(fluid), face_borders_fluid_v(fluid),
-               face_borders_fluid_w(fluid))
+    with trace.span("grid_update"):
+        solid = state.solid
+        fluid = liquid_phi < 0
+        borders = (face_borders_fluid_u(fluid), face_borders_fluid_v(fluid),
+                   face_borders_fluid_w(fluid))
 
-    vel, valid = [], []
-    for (vsum, wsum), b in zip(p2g_sums, borders):
-        is_set = wsum >= _P2G_EPS
-        vals = vsum / torch.clamp(wsum, min=_P2G_EPS)
-        mask = is_set & b
-        vel.append(torch.where(mask, vals, torch.zeros_like(vals)))
-        valid.append(mask)
-    u, v, w, *_ = extrapolate_velocity_field(*vel, *valid,
-                                             cfg.extrapolation_layers)
-    saved = (u, v, w)  # FLIP delta baseline
+        vel, valid = [], []
+        for (vsum, wsum), b in zip(p2g_sums, borders):
+            is_set = wsum >= _P2G_EPS
+            vals = vsum / torch.clamp(wsum, min=_P2G_EPS)
+            mask = is_set & b
+            vel.append(torch.where(mask, vals, torch.zeros_like(vals)))
+            valid.append(mask)
+        with trace.span("extrapolate"):
+            u, v, w, *_ = extrapolate_velocity_field(*vel, *valid,
+                                                     cfg.extrapolation_layers)
+        saved = (u, v, w)  # FLIP delta baseline
 
-    # body force on faces bordering fluid (fluidsimulation.cpp:271-312)
-    u, v, w = (torch.where(b, g + state.gravity[a] * dt, g)
-               for a, (g, b) in enumerate(zip((u, v, w), borders)))
+        # body force on faces bordering fluid (fluidsimulation.cpp:271-312)
+        u, v, w = (torch.where(b, g + state.gravity[a] * dt, g)
+                   for a, (g, b) in enumerate(zip((u, v, w), borders)))
 
-    # viscosity (fluidsimulation.cpp:170-196), skipped when all zero
-    visc_iters, visc_res, visc_tol = 0, 0.0, 0.0
-    if bool((state.viscosity > 0).any()):
-        volumes = vsolver.compute_volume_grids(liquid_phi, cfg)
-        states = vsolver.FaceStates(solid.solid_u, solid.solid_v,
-                                    solid.solid_w)
-        vsys = vsolver.build_viscosity_system(
-            u, v, w, volumes, states, state.viscosity, dt, cfg)
-        result = vsolver.solve_viscosity(vsys, cfg, warm_start=(u, v, w))
-        u, v, w = vsolver.apply_viscosity_solution(u, v, w, vsys, result, cfg)
-        visc_iters, visc_res = result.iterations, result.residual
-        visc_tol = result.tol
+        # viscosity (fluidsimulation.cpp:170-196), skipped when all zero
+        visc_iters, visc_res, visc_tol = 0, 0.0, 0.0
+        if trace.read("viscosity_any", (state.viscosity > 0).any()):
+            with trace.span("viscosity_build"):
+                volumes = vsolver.compute_volume_grids(liquid_phi, cfg)
+                states = vsolver.FaceStates(solid.solid_u, solid.solid_v,
+                                            solid.solid_w)
+                vsys = vsolver.build_viscosity_system(
+                    u, v, w, volumes, states, state.viscosity, dt, cfg)
+            with trace.span("viscosity_solve"):
+                result = vsolver.solve_viscosity(vsys, cfg,
+                                                 warm_start=(u, v, w))
+            with trace.span("viscosity_apply"):
+                u, v, w = vsolver.apply_viscosity_solution(
+                    u, v, w, vsys, result, cfg)
+            visc_iters, visc_res = result.iterations, result.residual
+            visc_tol = result.tol
 
-    # pressure projection (fluidsimulation.cpp:522-531)
-    psys = psolver.build_pressure_system(
-        u, v, w, liquid_phi, solid.weight_u, solid.weight_v, solid.weight_w,
-        dt, cfg)
-    pres = psolver.solve_pressure(psys, cfg)
-    u, v, w, *valid = psolver.apply_pressure(
-        u, v, w, pres.x[0], liquid_phi,
-        solid.weight_u, solid.weight_v, solid.weight_w, dt, cfg)
-    u, v, w, *_ = extrapolate_velocity_field(u, v, w, *valid,
-                                             cfg.extrapolation_layers)
+        # pressure projection (fluidsimulation.cpp:522-531)
+        with trace.span("pressure_build"):
+            psys = psolver.build_pressure_system(
+                u, v, w, liquid_phi, solid.weight_u, solid.weight_v,
+                solid.weight_w, dt, cfg)
+        with trace.span("pressure_solve"):
+            pres = psolver.solve_pressure(psys, cfg)
+        with trace.span("pressure_apply"):
+            u, v, w, *valid = psolver.apply_pressure(
+                u, v, w, pres.x[0], liquid_phi,
+                solid.weight_u, solid.weight_v, solid.weight_w, dt, cfg)
+        with trace.span("extrapolate"):
+            u, v, w, *_ = extrapolate_velocity_field(u, v, w, *valid,
+                                                     cfg.extrapolation_layers)
 
-    # constrain: zero both fields at fully closed faces
-    # (fluidsimulation.cpp:696-729)
-    weights = (solid.weight_u, solid.weight_v, solid.weight_w)
-    new = tuple(torch.where(wt == 0, torch.zeros_like(g), g)
-                for g, wt in zip((u, v, w), weights))
-    saved = tuple(torch.where(wt == 0, torch.zeros_like(g), g)
-                  for g, wt in zip(saved, weights))
-    solver_diag = dict(
-        pressure_iterations=pres.iterations,
-        pressure_residual=pres.residual,
-        pressure_tolerance=pres.tol,
-        viscosity_iterations=visc_iters,
-        viscosity_residual=visc_res,
-        viscosity_tolerance=visc_tol,
-        liquid_cells=fluid.sum(),
-    )
-    return new, saved, solver_diag
+        # constrain: zero both fields at fully closed faces
+        # (fluidsimulation.cpp:696-729)
+        weights = (solid.weight_u, solid.weight_v, solid.weight_w)
+        new = tuple(torch.where(wt == 0, torch.zeros_like(g), g)
+                    for g, wt in zip((u, v, w), weights))
+        saved = tuple(torch.where(wt == 0, torch.zeros_like(g), g)
+                      for g, wt in zip(saved, weights))
+        solver_diag = dict(
+            pressure_iterations=pres.iterations,
+            pressure_residual=pres.residual,
+            pressure_tolerance=pres.tol,
+            viscosity_iterations=visc_iters,
+            viscosity_residual=visc_res,
+            viscosity_tolerance=visc_tol,
+            liquid_cells=fluid.sum(),
+        )
+        return new, saved, solver_diag
 
 
 def _gather_grids(cfg: SimConfig, *grids):
@@ -230,56 +242,62 @@ def _step_table(state: SimState, dt: float, cfg: SimConfig):
     solid = state.solid
 
     # ---------------- PASS A: bucket by position ----------------
-    table_a = build_buckets(
-        state.pos, tuple(state.pos.unbind(dim=1)) + tuple(
-            state.vel.unbind(dim=1)), dx, shape, cap)
-    liquid_phi, p2g_sums = pg.p2g_and_sdf(
-        table_a, shape, dx, cfg.particle_radius, solid.center_phi,
-        (cfg.u_shape, cfg.v_shape, cfg.w_shape))
+    with trace.span("pass_a"):
+        table_a = build_buckets(
+            state.pos, tuple(state.pos.unbind(dim=1)) + tuple(
+                state.vel.unbind(dim=1)), dx, shape, cap)
+    with trace.span("liquid_sdf"):
+        liquid_phi, p2g_sums = pg.p2g_and_sdf(
+            table_a, shape, dx, cfg.particle_radius, solid.center_phi,
+            (cfg.u_shape, cfg.v_shape, cfg.w_shape))
 
     (u, v, w), (su, sv, sw), solver_diag = _grid_update(
         state, liquid_phi, p2g_sums, dt, cfg)
 
     # ---------------- G2P + advection over table A ----------------
-    new_t = pg.sample_mac_at_table(table_a, u, v, w, dx)
-    old_t = pg.sample_mac_at_table(table_a, su, sv, sw, dx)
-    own_t = table_a.fields[3:6]
-    vel_t = [_pic_flip(cfg, n_, o_, p_)
-             for n_, o_, p_ in zip(new_t, old_t, own_t)]
-    # RK2 stage 1: midpoint from the grid velocity (fluidsimulation.cpp:535)
-    half = 0.5 * dt
-    mid_t = [p + half * n_ for p, n_ in zip(table_a.fields[0:3], new_t)]
-    del new_t, old_t
+    with trace.span("g2p"):
+        new_t = pg.sample_mac_at_table(table_a, u, v, w, dx)
+        old_t = pg.sample_mac_at_table(table_a, su, sv, sw, dx)
+        own_t = table_a.fields[3:6]
+        vel_t = [_pic_flip(cfg, n_, o_, p_)
+                 for n_, o_, p_ in zip(new_t, old_t, own_t)]
+        # RK2 stage 1: midpoint from the grid velocity
+        # (fluidsimulation.cpp:535)
+        half = 0.5 * dt
+        mid_t = [p + half * n_ for p, n_ in zip(table_a.fields[0:3], new_t)]
+        del new_t, old_t
 
-    spx, spy, spz, svx, svy, svz = table_a.sorted
-    flat = gather_results(
-        table_a, (*vel_t, *mid_t),
-        fallbacks=(svx, svy, svz,
-                   spx + half * svx, spy + half * svy, spz + half * svz))
-    fvel_x, fvel_y, fvel_z, fmx, fmy, fmz = flat
-    overflow = table_a.n_overflow
-    del table_a, vel_t, mid_t, flat
+        spx, spy, spz, svx, svy, svz = table_a.sorted
+        flat = gather_results(
+            table_a, (*vel_t, *mid_t),
+            fallbacks=(svx, svy, svz,
+                       spx + half * svx, spy + half * svy, spz + half * svz))
+        fvel_x, fvel_y, fvel_z, fmx, fmy, fmz = flat
+        overflow = table_a.n_overflow
+        del table_a, vel_t, mid_t, flat
 
     # ---------------- PASS B: bucket by midpoint ----------------
     # only the midpoints enter tables; the positions and stage-1
     # velocities ride the sort
-    table_b = build_buckets(
-        torch.stack([fmx, fmy, fmz], dim=1),
-        (fmx, fmy, fmz, spx, spy, spz, fvel_x, fvel_y, fvel_z),
-        dx, shape, cap, n_table_fields=3)
-    inside_m = _inside(*table_b.fields[0:3], shape, dx)
-    v2_t = pg.sample_mac_at_table(table_b, u, v, w, dx, inside_m)
-    del inside_m
-    _, _, _, sbpx, sbpy, sbpz, sbvx, sbvy, sbvz = table_b.sorted
-    # overflow falls back to the particle's own (ballistic) velocity
-    fv2 = gather_results(table_b, v2_t, fallbacks=(sbvx, sbvy, sbvz))
-    fnp = [p + dt * vv for p, vv in zip((sbpx, sbpy, sbpz), fv2)]
-    overflow = overflow + table_b.n_overflow
-    del table_b, v2_t, fv2
+    with trace.span("midpoint_sample"):
+        table_b = build_buckets(
+            torch.stack([fmx, fmy, fmz], dim=1),
+            (fmx, fmy, fmz, spx, spy, spz, fvel_x, fvel_y, fvel_z),
+            dx, shape, cap, n_table_fields=3)
+        inside_m = _inside(*table_b.fields[0:3], shape, dx)
+        v2_t = pg.sample_mac_at_table(table_b, u, v, w, dx, inside_m)
+        del inside_m
+        _, _, _, sbpx, sbpy, sbpz, sbvx, sbvy, sbvz = table_b.sorted
+        # overflow falls back to the particle's own (ballistic) velocity
+        fv2 = gather_results(table_b, v2_t, fallbacks=(sbvx, sbvy, sbvz))
+        fnp = [p + dt * vv for p, vv in zip((sbpx, sbpy, sbpz), fv2)]
+        overflow = overflow + table_b.n_overflow
+        del table_b, v2_t, fv2
 
+    with trace.span("pushback"):
+        pos = _clamp_and_push_back(fnp, solid, cfg)
     new_state = state.replace(
-        pos=_clamp_and_push_back(fnp, solid, cfg),
-        vel=torch.stack([sbvx, sbvy, sbvz], dim=1), u=u, v=v, w=w)
+        pos=pos, vel=torch.stack([sbvx, sbvy, sbvz], dim=1), u=u, v=v, w=w)
     return new_state, dict(bucket_overflow=overflow, **solver_diag)
 
 
@@ -292,39 +310,44 @@ def _step_stream(state: SimState, dt: float, cfg: SimConfig):
     solid = state.solid
 
     # ---------------- PASS A: the substep's one sort ----------------
-    stream = stream_sort(
-        state.pos, tuple(state.pos.unbind(dim=1)) + tuple(
-            state.vel.unbind(dim=1)), dx, shape)
-    spx, spy, spz, svx, svy, svz = stream.sorted
-    liquid_phi, p2g_sums = st.p2g_sdf_stream(
-        stream, shape, dx, cfg.particle_radius, solid.center_phi,
-        (cfg.u_shape, cfg.v_shape, cfg.w_shape))
+    with trace.span("pass_a"):
+        stream = stream_sort(
+            state.pos, tuple(state.pos.unbind(dim=1)) + tuple(
+                state.vel.unbind(dim=1)), dx, shape)
+        spx, spy, spz, svx, svy, svz = stream.sorted
+    with trace.span("liquid_sdf"):
+        liquid_phi, p2g_sums = st.p2g_sdf_stream(
+            stream, shape, dx, cfg.particle_radius, solid.center_phi,
+            (cfg.u_shape, cfg.v_shape, cfg.w_shape))
 
     (u, v, w), (su, sv, sw), solver_diag = _grid_update(
         state, liquid_phi, p2g_sums, dt, cfg)
 
     # ---------------- G2P + advection ----------------
     # one row gather serves the new and the FLIP-saved fields
-    (nu, ou), (nv, ov), (nw, ow) = st.sample_mac_at(
-        spx, spy, spz, stream.key, [u, su], [v, sv], [w, sw], dx, shape)
-    vel = [_pic_flip(cfg, n_, o_, p_)
-           for n_, o_, p_ in zip((nu, nv, nw), (ou, ov, ow), (svx, svy, svz))]
-    half = 0.5 * dt
-    mx = spx + half * nu
-    my = spy + half * nv
-    mz = spz + half * nw
-    del stream, ou, ov, ow
+    with trace.span("g2p"):
+        (nu, ou), (nv, ov), (nw, ow) = st.sample_mac_at(
+            spx, spy, spz, stream.key, [u, su], [v, sv], [w, sw], dx, shape)
+        vel = [_pic_flip(cfg, n_, o_, p_) for n_, o_, p_ in zip(
+            (nu, nv, nw), (ou, ov, ow), (svx, svy, svz))]
+        half = 0.5 * dt
+        mx = spx + half * nu
+        my = spy + half * nv
+        mz = spz + half * nw
+        del stream, ou, ov, ow
 
     # ---------------- stage 2 at the midpoints (no re-sort) -------------
-    key_m = cell_of_position(torch.stack([mx, my, mz], dim=1), dx, shape)
-    (v2x,), (v2y,), (v2z,) = st.sample_mac_at(
-        mx, my, mz, key_m, [u], [v], [w], dx, shape,
-        valid=_inside(mx, my, mz, shape, dx))
-    fnp = [p + dt * vv for p, vv in zip((spx, spy, spz), (v2x, v2y, v2z))]
+    with trace.span("midpoint_sample"):
+        key_m = cell_of_position(torch.stack([mx, my, mz], dim=1), dx, shape)
+        (v2x,), (v2y,), (v2z,) = st.sample_mac_at(
+            mx, my, mz, key_m, [u], [v], [w], dx, shape,
+            valid=_inside(mx, my, mz, shape, dx))
+        fnp = [p + dt * vv for p, vv in zip((spx, spy, spz), (v2x, v2y, v2z))]
 
-    new_state = state.replace(
-        pos=_clamp_and_push_back(fnp, solid, cfg),
-        vel=torch.stack(vel, dim=1), u=u, v=v, w=w)
+    with trace.span("pushback"):
+        pos = _clamp_and_push_back(fnp, solid, cfg)
+    new_state = state.replace(pos=pos, vel=torch.stack(vel, dim=1),
+                              u=u, v=v, w=w)
     zero = torch.zeros((), dtype=torch.int64, device=state.pos.device)
     return new_state, dict(bucket_overflow=zero, **solver_diag)
 
@@ -341,92 +364,98 @@ def _step_pallas(state: SimState, dt: float, cfg: SimConfig,
     cap = cfg.sdf_cap
 
     # ---------------- PASS A ----------------
-    pos_a, vel_a, key_a, plan_a, sums, table, overflow = _pass_a(
-        state, cfg, substep_idx)
+    with trace.span("pass_a"):
+        pos_a, vel_a, key_a, plan_a, sums, table, overflow = _pass_a(
+            state, cfg, substep_idx)
     uncovered = {}   # per visit plan, the particles it left uncovered
     visits = []      # per visit plan, the visits its chunks asked for
-    liquid_phi = liquid_sdf_from_particles(
-        pp.table_fields(table, cap), shape, dx, cfg.particle_radius,
-        solid.center_phi)
-    p2g_sums = pp.p2g_combine(sums, shape,
-                              (cfg.u_shape, cfg.v_shape, cfg.w_shape))
+    with trace.span("liquid_sdf"):
+        liquid_phi = liquid_sdf_from_particles(
+            pp.table_fields(table, cap), shape, dx, cfg.particle_radius,
+            solid.center_phi)
+    with trace.span("p2g_combine"):
+        p2g_sums = pp.p2g_combine(sums, shape,
+                                  (cfg.u_shape, cfg.v_shape, cfg.w_shape))
     del sums, table   # gigabytes at 256^3; nothing below reads them
 
     (u, v, w), (su, sv, sw), solver_diag = _grid_update(
         state, liquid_phi, p2g_sums, dt, cfg)
 
     # ---------------- G2P + advection ----------------
-    spx, spy, spz = (pos_a[:, a].contiguous() for a in range(3))
-    svx, svy, svz = vel_a.unbind(dim=1)
-    gu, gv, gw, gsu, gsv, gsw = _gather_grids(cfg, u, v, w, su, sv, sw)
-    gm = pp.gather_mac(spx, spy, spz, key_a, [gu, gsu], [gv, gsv],
-                       [gw, gsw], dx, shape, cfg.pallas_split_terms)
-    nu, nv, nw, ou, ov, ow = gm.unbind(dim=0)   # rows g*3 + comp
-    if plan_a is not None:
-        # uncovered particles advect ballistically: new == old == own
-        # velocity makes the FLIP update a no-op
-        covered_a = plan_a.covered
-        uncovered["uncovered_pass_a"] = (~covered_a).sum()
-        visits.append(plan_a.visits)
-        nu, ou = (torch.where(covered_a, g, svx) for g in (nu, ou))
-        nv, ov = (torch.where(covered_a, g, svy) for g in (nv, ov))
-        nw, ow = (torch.where(covered_a, g, svz) for g in (nw, ow))
-    vel_x = _pic_flip(cfg, nu, ou, svx)
-    vel_y = _pic_flip(cfg, nv, ov, svy)
-    vel_z = _pic_flip(cfg, nw, ow, svz)
+    with trace.span("g2p"):
+        spx, spy, spz = (pos_a[:, a].contiguous() for a in range(3))
+        svx, svy, svz = vel_a.unbind(dim=1)
+        gu, gv, gw, gsu, gsv, gsw = _gather_grids(cfg, u, v, w, su, sv, sw)
+        gm = pp.gather_mac(spx, spy, spz, key_a, [gu, gsu], [gv, gsv],
+                           [gw, gsw], dx, shape, cfg.pallas_split_terms)
+        nu, nv, nw, ou, ov, ow = gm.unbind(dim=0)   # rows g*3 + comp
+        if plan_a is not None:
+            # uncovered particles advect ballistically: new == old == own
+            # velocity makes the FLIP update a no-op
+            covered_a = plan_a.covered
+            uncovered["uncovered_pass_a"] = (~covered_a).sum()
+            visits.append(plan_a.visits)
+            nu, ou = (torch.where(covered_a, g, svx) for g in (nu, ou))
+            nv, ov = (torch.where(covered_a, g, svy) for g in (nv, ov))
+            nw, ow = (torch.where(covered_a, g, svz) for g in (nw, ow))
+        vel_x = _pic_flip(cfg, nu, ou, svx)
+        vel_y = _pic_flip(cfg, nv, ov, svy)
+        vel_z = _pic_flip(cfg, nw, ow, svz)
 
-    # RK2 stage 1 midpoint from the grid velocity (fluidsimulation.cpp:535)
-    half = 0.5 * dt
-    mx = spx + half * nu
-    my = spy + half * nv
-    mz = spz + half * nw
+        # RK2 stage 1 midpoint from the grid velocity (fluidsimulation.cpp:535)
+        half = 0.5 * dt
+        mx = spx + half * nu
+        my = spy + half * nv
+        mz = spz + half * nw
 
     # ---------------- PASS B: stage-2 sample at the midpoints ----------------
-    key_m = pp.key_of_position(torch.stack([mx, my, mz], dim=1), dx, shape)
-    fields = (mx, my, mz, spx, spy, spz, vel_x, vel_y, vel_z)
-    sample_ok = None
-    if cfg.pallas_pass_b == "plan":
-        # pass-A order; uncovered midpoints advect ballistically (counted)
-        plan_b = pp.plan_midpoint_visits(
-            key_m, cfg.pallas_midpoint_budget, cfg.pallas_midpoint_factor)
-        sample_ok = plan_b.covered
-        uncovered["uncovered_pass_b"] = (~sample_ok).sum()
-        visits.append(plan_b.visits)
-    else:
-        key_m, fields = pp.sort_by_key(key_m, fields)
-    bmx, bmy, bmz, bpx, bpy, bpz, bvx, bvy, bvz = fields
-    gmb = pp.gather_mac_one_grid(bmx, bmy, bmz, key_m, gu, gv, gw, dx, shape,
-                                 cfg.pallas_split_terms)
-    inside_m = _inside(bmx, bmy, bmz, shape, dx)
-    zero = torch.zeros_like(bmx)
-    v2 = [torch.where(inside_m, gmb[c], zero) for c in range(3)]
-    if sample_ok is not None:
-        v2 = [torch.where(sample_ok, g, bv)
-              for g, bv in zip(v2, (bvx, bvy, bvz))]
-    fnp = [p + dt * vv for p, vv in zip((bpx, bpy, bpz), v2)]
+    with trace.span("midpoint_sample"):
+        key_m = pp.key_of_position(torch.stack([mx, my, mz], dim=1), dx, shape)
+        fields = (mx, my, mz, spx, spy, spz, vel_x, vel_y, vel_z)
+        sample_ok = None
+        if cfg.pallas_pass_b == "plan":
+            # pass-A order; uncovered midpoints advect ballistically (counted)
+            plan_b = pp.plan_midpoint_visits(
+                key_m, cfg.pallas_midpoint_budget, cfg.pallas_midpoint_factor)
+            sample_ok = plan_b.covered
+            uncovered["uncovered_pass_b"] = (~sample_ok).sum()
+            visits.append(plan_b.visits)
+        else:
+            key_m, fields = pp.sort_by_key(key_m, fields)
+        bmx, bmy, bmz, bpx, bpy, bpz, bvx, bvy, bvz = fields
+        gmb = pp.gather_mac_one_grid(bmx, bmy, bmz, key_m, gu, gv, gw, dx,
+                                     shape, cfg.pallas_split_terms)
+        inside_m = _inside(bmx, bmy, bmz, shape, dx)
+        zero = torch.zeros_like(bmx)
+        v2 = [torch.where(inside_m, gmb[c], zero) for c in range(3)]
+        if sample_ok is not None:
+            v2 = [torch.where(sample_ok, g, bv)
+                  for g, bv in zip(v2, (bvx, bvy, bvz))]
+        fnp = [p + dt * vv for p, vv in zip((bpx, bpy, bpz), v2)]
 
     # ---------------- clamp + solid pushback ----------------
-    lo, his = _clamp_bounds(cfg)
-    cp = [torch.clamp(p, lo, hi) for p, hi in zip(fnp, his)]
-    if cfg.pallas_pushback == "kernel":
-        # node-SDF corners through a clamped-position visit plan; uncovered
-        # particles skip this substep's pushback (counted)
-        key_k = pp.key_of_position(torch.stack(cp, dim=1), dx, shape)
-        plan_k = pp.plan_midpoint_visits(key_k, cfg.pallas_midpoint_budget,
-                                         cfg.pallas_midpoint_factor)
-        ok = plan_k.covered
-        visits.append(plan_k.visits)
-        corners = pp.gather_rows8(key_k, ok, solid.phi, shape)
-        home = pp.decode_key(key_k, shape)
-        dp = pushback_from_corners(
-            list(corners), *(c / dx - h.to(torch.float32)
-                             for c, h in zip(cp, home)))
-        dp = [torch.where(ok, d, torch.zeros_like(d)) for d in dp]
-        uncovered["uncovered_pushback"] = (~ok).sum()
-    else:
-        key_c = cell_of_position(torch.stack(cp, dim=1), dx, shape)
-        dp = solid_pushback_at(*cp, key_c, solid.phi, dx, shape)
-    final = [torch.clamp(c + d, lo, hi) for c, d, hi in zip(cp, dp, his)]
+    with trace.span("pushback"):
+        lo, his = _clamp_bounds(cfg)
+        cp = [torch.clamp(p, lo, hi) for p, hi in zip(fnp, his)]
+        if cfg.pallas_pushback == "kernel":
+            # node-SDF corners through a clamped-position visit plan; uncovered
+            # particles skip this substep's pushback (counted)
+            key_k = pp.key_of_position(torch.stack(cp, dim=1), dx, shape)
+            plan_k = pp.plan_midpoint_visits(key_k, cfg.pallas_midpoint_budget,
+                                             cfg.pallas_midpoint_factor)
+            ok = plan_k.covered
+            visits.append(plan_k.visits)
+            corners = pp.gather_rows8(key_k, ok, solid.phi, shape)
+            home = pp.decode_key(key_k, shape)
+            dp = pushback_from_corners(
+                list(corners), *(c / dx - h.to(torch.float32)
+                                 for c, h in zip(cp, home)))
+            dp = [torch.where(ok, d, torch.zeros_like(d)) for d in dp]
+            uncovered["uncovered_pushback"] = (~ok).sum()
+        else:
+            key_c = cell_of_position(torch.stack(cp, dim=1), dx, shape)
+            dp = solid_pushback_at(*cp, key_c, solid.phi, dx, shape)
+        final = [torch.clamp(c + d, lo, hi) for c, d, hi in zip(cp, dp, his)]
 
     new_state = state.replace(
         pos=torch.stack(final, dim=1),
@@ -447,51 +476,68 @@ def step(state: SimState, dt: float, cfg: SimConfig, substep_idx=None):
     None for 0) sets the "pallas" engine's stale pass-A re-sort cadence.
     Only the "pallas" engine needs a grid of whole 8x8x8 tiles. Returns
     (state, diagnostics pieces)."""
-    if cfg.particle_engine == "stream":
-        return _step_stream(state, dt, cfg)
-    if cfg.particle_engine == "pallas":
-        pp.check_grid(cfg.grid_shape)
-        return _step_pallas(state, dt, cfg, substep_idx)
-    return _step_table(state, dt, cfg)
+    with trace.span("substep"):
+        if cfg.particle_engine == "stream":
+            return _step_stream(state, dt, cfg)
+        if cfg.particle_engine == "pallas":
+            pp.check_grid(cfg.grid_shape)
+            return _step_pallas(state, dt, cfg, substep_idx)
+        return _step_table(state, dt, cfg)
 
 
 def advance(state: SimState, dt: float, cfg: SimConfig):
     """Advance by a frame of length dt with CFL substeps
-    (fluidsimulation.cpp:135-168). Returns (state, StepDiagnostics)."""
+    (fluidsimulation.cpp:135-168). Returns (state, StepDiagnostics). Every
+    read from the device goes through trace.read: one CFL read a substep
+    (site "cfl_read"), the step's own, and the frame's diagnostics at its
+    end (sites "frame.*"); StepDiagnostics.host_reads holds the frame's
+    counts by site and, while a profiler records, .stages its spans."""
     f32 = np.float32
+    read = trace.read
     dt = f32(dt)
     t = f32(0.0)
     diag = StepDiagnostics()
     counts = {k: [] for k in _COUNTED}
     visits = []
-    while t < dt and diag.substeps < cfg.max_substeps:
-        maxvel = f32(_max_velocity(state.u, state.v, state.w).item())
-        cfl = f32(cfg.cfl_number * cfg.dx) / maxvel if maxvel > 0 else \
-            f32(np.inf)
-        substep = min(cfl, f32(dt - t))
-        diag.stale_substeps += runs_stale(cfg, diag.substeps)
-        state, d = step(state, float(substep), cfg,
-                        substep_idx=diag.substeps)
-        diag.substeps += 1
-        diag.pressure_iterations += d["pressure_iterations"]
-        diag.pressure_residual = d["pressure_residual"]
-        diag.pressure_tolerance = d["pressure_tolerance"]
-        diag.viscosity_iterations += d["viscosity_iterations"]
-        diag.viscosity_residual = d["viscosity_residual"]
-        diag.viscosity_tolerance = d["viscosity_tolerance"]
-        diag.max_velocity = max(diag.max_velocity, float(maxvel))
-        diag.liquid_cells = d["liquid_cells"]
-        for k, v in counts.items():
-            v.append(d.get(k, 0))
-        visits.append(d.get("plan_visits", 0))
-        t = f32(t + substep)
-    diag.pressure_residual = float(diag.pressure_residual)
-    diag.pressure_tolerance = float(diag.pressure_tolerance)
-    diag.viscosity_residual = float(diag.viscosity_residual)
-    diag.viscosity_tolerance = float(diag.viscosity_tolerance)
-    diag.liquid_cells = int(diag.liquid_cells)
-    for k, v in counts.items():
-        setattr(diag, k, int(sum(int(o) for o in v)))
-    diag.plan_demand = max((int(o) for o in visits), default=0) / (
-        pp.n_chunks(state.pos.shape[0]))
+    with trace.Frame(state.pos.is_cuda) as frame:
+        while t < dt and diag.substeps < cfg.max_substeps:
+            maxvel = f32(read("cfl_read",
+                              _max_velocity(state.u, state.v, state.w)))
+            cfl = f32(cfg.cfl_number * cfg.dx) / maxvel if maxvel > 0 \
+                else f32(np.inf)
+            substep = min(cfl, f32(dt - t))
+            diag.stale_substeps += runs_stale(cfg, diag.substeps)
+            state, d = step(state, float(substep), cfg,
+                            substep_idx=diag.substeps)
+            diag.substeps += 1
+            diag.pressure_iterations += d["pressure_iterations"]
+            diag.pressure_residual = d["pressure_residual"]
+            diag.pressure_tolerance = d["pressure_tolerance"]
+            diag.viscosity_iterations += d["viscosity_iterations"]
+            diag.viscosity_residual = d["viscosity_residual"]
+            diag.viscosity_tolerance = d["viscosity_tolerance"]
+            diag.max_velocity = max(diag.max_velocity, float(maxvel))
+            diag.liquid_cells = d["liquid_cells"]
+            for k, v in counts.items():
+                v.append(d.get(k, 0))
+            visits.append(d.get("plan_visits", 0))
+            t = f32(t + substep)
+        with trace.span("frame_reads"):
+            diag.pressure_residual = float(
+                read("frame.pressure", diag.pressure_residual))
+            diag.pressure_tolerance = float(
+                read("frame.pressure", diag.pressure_tolerance))
+            diag.viscosity_residual = float(
+                read("frame.viscosity", diag.viscosity_residual))
+            diag.viscosity_tolerance = float(
+                read("frame.viscosity", diag.viscosity_tolerance))
+            diag.liquid_cells = int(
+                read("frame.liquid_cells", diag.liquid_cells))
+            for k, v in counts.items():
+                setattr(diag, k,
+                        int(sum(int(read("frame.counts", o)) for o in v)))
+            diag.plan_demand = max(
+                (int(read("frame.plan_visits", o)) for o in visits),
+                default=0) / pp.n_chunks(state.pos.shape[0])
+    diag.stages, diag.host_reads = frame.stages, frame.host_reads
     return state, diag

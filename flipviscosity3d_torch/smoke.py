@@ -64,6 +64,7 @@ import json
 import math
 import os
 import sys
+import tempfile
 import time
 import traceback
 
@@ -92,6 +93,7 @@ from .scripts import (
     solver_microbench,
 )
 from .solvers import multigrid as mg
+from .utils import trace
 
 # (wrapper, source, the TPU kernel it replaces)
 KERNELS = (
@@ -1651,10 +1653,10 @@ def profile_frames(res: int, frames: int, top: int = 25, dt: float = DT,
 
 def profile_sim(sim, frames: int, top: int = 25, dt: float = DT) -> dict:
     """Trace the next `frames` frames of `dt` of a simulation on the card
-    with torch.profiler: wall time, summed device kernel time, and the `top`
-    operators by device self time."""
-    return _trace(lambda: sum(sim.advance(dt).substeps
-                              for _ in range(frames)), frames, top)
+    with torch.profiler: wall time, device busy time, the `top` operators
+    by device self time, and the frames' stages (_trace)."""
+    return _trace(lambda: [sim.advance(dt) for _ in range(frames)], frames,
+                  top)
 
 
 def profile_sharded(res: int, frames: int = 1, n_slabs: int = SHARDED_SLABS,
@@ -1675,15 +1677,18 @@ def profile_sharded(res: int, frames: int = 1, n_slabs: int = SHARDED_SLABS,
 
     def advance():
         box[0], d = sh.advance_sharded(box[0], dt, cfg, spec, group)
-        return d.substeps
+        return d
 
     advance()
-    return _trace(lambda: sum(advance() for _ in range(frames)), frames,
-                  top)
+    return _trace(lambda: [advance() for _ in range(frames)], frames, top)
 
 
 def _trace(run, frames: int, top: int) -> dict:
-    """run() (-> substeps) under torch.profiler on the card."""
+    """run() (-> the frames' StepDiagnostics) under torch.profiler on the
+    card: wall time; device busy time, the union of the device operations'
+    intervals in the Chrome trace (overlapping streams count once); the
+    `top` operators by device self time; and the frames' stages summed by
+    name (utils/trace.py; empty for the slab pipeline, which has none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1691,20 +1696,26 @@ def _trace(run, frames: int, top: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        substeps = run()
+        diags = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies), so no time counts twice
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            data = json.load(f)
+    chrome = data["traceEvents"] if isinstance(data, dict) else data
+    busy_us = trace.device_busy_us(e for e in chrome if e.get("ph") == "X")
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in events)
     events.sort(key=lambda e: -e.self_device_time_total)
     return {
-        "frames": frames, "substeps": substeps, "wall_ms": wall * 1e3,
-        "device_busy_ms": busy_us / 1e3,
+        "frames": frames, "substeps": sum(d.substeps for d in diags),
+        "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
         "top": [{"name": e.key[:90], "calls": e.count,
                  "device_ms": e.self_device_time_total / 1e3}
                 for e in events[:top]],
+        "stages": trace.sum_stages(diags),
     }
 
 

@@ -183,6 +183,28 @@ def _coarse_solve(hier: MGHierarchy, b, pre, post, omega):
     return xf.reshape(b.shape)
 
 
+def _cycle(hier: MGHierarchy, lvl: int, b, pre: int, post: int,
+           omega: float, coarse_scale: float):
+    """The V-cycle from level `lvl` down. A module function, not a closure
+    that calls itself: such a closure is a reference cycle, which kept
+    each solve's hierarchy on the card until Python's collector ran."""
+    levels = hier.levels
+    if lvl == len(levels) - 1:
+        return _coarse_solve(hier, b, pre, post, omega)
+    if hier.ops is not None:
+        diag, links = hier.ops[lvl]
+        x, rc = mg_down(diag, links, b, omega)
+        xc = _cycle(hier, lvl + 1, rc, pre, post, omega, coarse_scale)
+        return mg_up(diag, links, b, x, xc.contiguous(), omega,
+                     coarse_scale)
+    level = levels[lvl]
+    x = _smooth(level, torch.zeros_like(b), b, pre, omega)
+    r = b - apply_level(level.diag, level.links, x)
+    xc = _cycle(hier, lvl + 1, pool_sum(r), pre, post, omega, coarse_scale)
+    x = x + coarse_scale * prolong(xc, b.shape[-3:])
+    return _smooth(level, x, b, post, omega)
+
+
 def v_cycle(hier: MGHierarchy, b, pre: int, post: int, omega: float,
             coarse_scale: float):
     """One V(pre,post) cycle from x = 0 on b ((I,J,K) or (nb,I,J,K)); a
@@ -190,25 +212,7 @@ def v_cycle(hier: MGHierarchy, b, pre: int, post: int, omega: float,
     squeeze = b.ndim == 3
     if squeeze:
         b = b[None]
-    levels = hier.levels
-
-    def cycle(lvl: int, b):
-        if lvl == len(levels) - 1:
-            return _coarse_solve(hier, b, pre, post, omega)
-        if hier.ops is not None:
-            diag, links = hier.ops[lvl]
-            x, rc = mg_down(diag, links, b, omega)
-            xc = cycle(lvl + 1, rc)
-            return mg_up(diag, links, b, x, xc.contiguous(), omega,
-                         coarse_scale)
-        level = levels[lvl]
-        x = _smooth(level, torch.zeros_like(b), b, pre, omega)
-        r = b - apply_level(level.diag, level.links, x)
-        xc = cycle(lvl + 1, pool_sum(r))
-        x = x + coarse_scale * prolong(xc, b.shape[-3:])
-        return _smooth(level, x, b, post, omega)
-
-    out = cycle(0, b.contiguous())
+    out = _cycle(hier, 0, b.contiguous(), pre, post, omega, coarse_scale)
     return out[0] if squeeze else out
 
 

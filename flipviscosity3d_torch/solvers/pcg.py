@@ -8,7 +8,10 @@ Operands are tuples of grids (one for pressure, (u, v, w) for viscosity).
 The slab pipeline (parallel/shard_step.py) passes its rank's `group` and a
 `reduce_mask` of owned rows: the dots and the inf-norm then cover owned rows
 only and are summed / maxed over the ranks, so every rank holds the same
-values and takes the same branch of the loop.
+values and takes the same branch of the loop. Each apply of A and of M is
+spanned ("pcg.apply_A", "pcg.apply_M"), and the convergence test is read
+through trace.read (site "pcg.read", iterations + 1 times a solve, and
+"pcg.converged", once).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from ..utils import trace
 
 
 def _dot(a, b, group=None, mask=None):
@@ -69,18 +74,22 @@ def pcg(apply_A: Callable, b: tuple, apply_M: Callable, tol,
         r = b
     else:
         x = x0
-        r = tuple(bi - ai for bi, ai in zip(b, apply_A(x0)))
-    s = apply_M(r)
+        with trace.span("pcg.apply_A"):
+            r = tuple(bi - ai for bi, ai in zip(b, apply_A(x0)))
+    with trace.span("pcg.apply_M"):
+        s = apply_M(r)
     sigma = _dot(s, r, group, reduce_mask)
     res = _absmax(r, group, reduce_mask)
     it = 0
-    while bool(res > tol) and it < max_iterations:
-        As = apply_A(s)
+    while trace.read("pcg.read", res > tol) and it < max_iterations:
+        with trace.span("pcg.apply_A"):
+            As = apply_A(s)
         denom = _dot(s, As, group, reduce_mask)
         alpha = sigma / torch.where(denom == 0, torch.ones_like(denom), denom)
         x = _axpy(alpha, s, x)
         r = _axpy(-alpha, As, r)
-        z = apply_M(r)
+        with trace.span("pcg.apply_M"):
+            z = apply_M(r)
         sigma_new = _dot(z, r, group, reduce_mask)
         beta = sigma_new / torch.where(
             sigma == 0, torch.ones_like(sigma), sigma)
@@ -88,7 +97,8 @@ def pcg(apply_A: Callable, b: tuple, apply_M: Callable, tol,
         sigma = sigma_new
         res = _absmax(r, group, reduce_mask)
         it += 1
-    return PCGResult(x, it, res, bool(res <= tol), tol)
+    return PCGResult(x, it, res, trace.read("pcg.converged", res <= tol),
+                     tol)
 
 
 def jacobi_preconditioner(diag: tuple):

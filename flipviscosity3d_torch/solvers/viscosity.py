@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from ..config import SimConfig
 from ..ops.grids import shifted_read
 from ..ops.levelset import volume_fraction_cube
+from ..utils import trace
 from .pcg import jacobi_preconditioner, pcg
 
 
@@ -304,8 +305,8 @@ def apply_viscosity_solution(u, v, w, sys: ViscositySystem, result, cfg):
     """Write the solution to matrix faces and zero all other faces; leave
     the field untouched if the solve failed (not converged and residual >=
     the acceptable error)."""
-    ok = result.converged or float(result.residual) < \
-        cfg.viscosity_acceptable_error
+    ok = result.converged or trace.read(
+        "viscosity_residual", result.residual) < cfg.viscosity_acceptable_error
     if not ok:
         return u, v, w
     return tuple(torch.where(m, x, torch.zeros_like(x))

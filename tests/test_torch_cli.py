@@ -225,7 +225,8 @@ def test_cli_without_a_card_fails_unless_asked_for_the_cpu(scene, tmp_path):
 
 def test_cli_profile_dir_traces_frames_2_to_4(scene, tmp_path):
     """--profile-dir writes one torch.profiler chrome trace, started before
-    frame 2 and stopped before frame 5."""
+    frame 2 and stopped before frame 5, which holds the program's own spans
+    of those frames (utils/trace.py): their substeps and CG iterations."""
     prof = tmp_path / "prof"
     run = cli.main(["--scene", scene, "--device", "cpu", "--frames", "6",
                     "--export", "none", "--profile-dir", str(prof),
@@ -233,6 +234,12 @@ def test_cli_profile_dir_traces_frames_2_to_4(scene, tmp_path):
     assert len(run.frames) == 6
     trace = prof / "frames_2_4.json"
     assert trace.exists() and trace.stat().st_size > 1000
+    data = json.loads(trace.read_text())
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert spans.count("advance") == 3
+    assert spans.count("substep") == sum(d.substeps for d in run.frames[2:5])
+    assert "pcg.apply_A" in spans
 
 
 def test_cli64_path_resumes_on_cpu(tmp_path):

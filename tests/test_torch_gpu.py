@@ -372,6 +372,61 @@ def test_profile_frames_sees_device_time(cuda):
     assert smoke.profile_sim(sim, 1)["device_busy_ms"] > 0
 
 
+# runtime calls in which the host waits for the device
+SYNC_CALLS = {"cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D"}
+# host waits a substep with viscosity that no trace.read makes (PERF.md
+# section 7): the blocking copies of the solves' tolerances to the card
+# (solvers/viscosity.py, 1; solvers/pressure.py, 2) and torch.linalg.inv's
+# error check in the dense coarse inverse (solvers/multigrid.py, 1 a solve)
+IMPLICIT_SYNCS = 5
+
+
+@pytest.mark.gpu
+def test_traced_frame_times_its_stages_on_the_stream(cuda, tmp_path):
+    """One 32^3 frame under torch.profiler: every stage has a positive
+    stream time, the stages of the substeps sum to at most the substeps'
+    and the frame's to at most its advance span; and the tracing waits on
+    nothing: the frame's host waits are exactly its counted reads and the
+    implicit syncs, and none is a cudaEventSynchronize."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sim = smoke.bench_scene(cuda, 32)
+    sim.advance(smoke.DT)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        d = sim.advance(smoke.DT)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    data = json.loads((tmp_path / "trace.json").read_text())
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    (frame,) = [e for e in events if e.get("cat") == "user_annotation"
+                and e["name"] == "advance"]
+    syncs = [e["name"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and e["name"] in SYNC_CALLS
+             and frame["ts"] <= e["ts"] <= frame["ts"] + frame["dur"]]
+    st = {k: s["stream_ms"] for k, s in d.stages.items()}
+    stages = ("pass_a", "liquid_sdf", "p2g_combine", "grid_update",
+              "extrapolate", "viscosity_build", "viscosity_solve",
+              "viscosity_apply", "pressure_build", "pressure_solve",
+              "pressure_apply", "pcg.apply_A", "pcg.apply_M", "g2p",
+              "midpoint_sample", "pushback", "substep", "advance")
+    assert all(st[k] > 0 for k in stages), st
+    eps = 1e-2   # ms: two timing events' resolution, many times over
+    assert sum(st[k] for k in ("pass_a", "liquid_sdf", "p2g_combine",
+                               "grid_update", "g2p", "midpoint_sample",
+                               "pushback")) <= st["substep"] + eps
+    assert st["cfl_read"] + st["substep"] + st["frame_reads"] <= \
+        st["advance"] + eps
+    assert "cudaEventSynchronize" not in syncs
+    assert len(syncs) == sum(d.host_reads.values()) + \
+        IMPLICIT_SYNCS * d.substeps, (syncs, d.host_reads)
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     b = torch.zeros((1, 8, 8, 8), device=cuda)

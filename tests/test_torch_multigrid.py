@@ -8,6 +8,8 @@ of tests/test_multigrid.py. Tolerance: rtol 2e-5 / atol 2e-5 (summation
 order only; the coarse dense inverse comes from two LAPACK builds).
 """
 
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -256,3 +258,27 @@ def test_mg_levels_script_runs_on_cpu_without_jax():
         ("pressure", [1, 16, 16, 16]), ("viscosity", [3, 17, 17, 17]),
         ("viscosity", [3, 9, 9, 9])]
     assert all(ln[k]["equal"] for ln in lines for k in ("mg_down", "mg_up"))
+
+
+def test_a_frame_leaves_no_hierarchy_to_the_collector():
+    """A frame of the bench scene at 16^3 leaves no reference cycle that
+    holds a hierarchy or a tensor: each solve's levels are freed when the
+    solve ends, not when Python's collector next runs (a V-cycle closure
+    that called itself once kept them)."""
+    sim = smoke.bench_scene("cpu", 16)
+    sim.advance(0.01)
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        sim.advance(0.01)
+        gc.collect()
+        found = [o for o in gc.garbage
+                 if isinstance(o, (torch.Tensor, tmg.MGHierarchy))]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        if enabled:
+            gc.enable()
+    assert found == []
