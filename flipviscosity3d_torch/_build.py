@@ -161,6 +161,18 @@ def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The SMs of the card that holds the CUDA tensor `t`."""
+    index = t.device.index
+    return _sm_count(index if index is not None
+                     else torch.cuda.current_device())
+
+
 def on_cpu(t: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor (the caller takes the plain PyTorch version),
     False for a CUDA tensor; raises for any other device."""

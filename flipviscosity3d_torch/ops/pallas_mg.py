@@ -20,8 +20,6 @@ columns along i through chunks of planes; `plane_chunk` sizes the chunks.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
@@ -142,15 +140,8 @@ def plane_chunk(shape, sms: int) -> int:
     return max(_MIN_CHUNK, c + (c & 1))
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _chunk(b) -> int:
-    return plane_chunk(b.shape, _sm_count(b.device.index
-                                          if b.device.index is not None
-                                          else torch.cuda.current_device()))
+    return plane_chunk(b.shape, _build.sm_count(b))
 
 
 _P, _I, _F = _build.P, _build.I, _build.F

@@ -93,6 +93,7 @@ from .scripts import (
     solver_microbench,
 )
 from .solvers import multigrid as mg
+from .solvers import viscosity as vsolver
 from .utils import trace
 
 # (wrapper, source, the TPU kernel it replaces)
@@ -134,16 +135,21 @@ KERNELS = (
     (pp.gather_mac_one_grid, "flipviscosity3d_torch/csrc/gather_mac.cu",
      "flipviscosity3d_tpu/ops/pallas_particles.py:1172 (n_grids=1, pass B's"
      " midpoint sample)"),
+    (vsolver.viscosity_operator,
+     "flipviscosity3d_torch/csrc/visc_operator.cu",
+     "none: the JAX package's coupled viscosity operator is XLA"
+     " (flipviscosity3d_tpu/solvers/viscosity.py::apply_viscosity_matrix)"),
 )
 # the kernels of the hardware-check path (run_hw_check)
 HW_CHECK_KERNELS = ("gather_rows", "detile", "scatter_revisit",
                     "gather_revisit")
 # the kernels of the prototype's path (run_proto)
 PROTO_KERNELS = ("tile_scatter", "tile_gather")
-# every kernel but the V-cycle's: none launches on a "table" or "stream"
-# engine path
-_PARTICLE_KERNELS = tuple(fn.__name__ for fn, _, _ in KERNELS
-                          if fn not in (pm.mg_down, pm.mg_up))
+# every kernel but the solvers' (the V-cycle's and the viscosity
+# operator): none launches on a "table" or "stream" engine path
+_PARTICLE_KERNELS = tuple(
+    fn.__name__ for fn, _, _ in KERNELS
+    if fn not in (pm.mg_down, pm.mg_up, vsolver.viscosity_operator))
 BENCH_PARTICLES = 4_111_806   # the JAX bench scene's pool at 128^3
 DT = 0.01
 STALE_LIFT = 0.43
@@ -203,15 +209,18 @@ def _scatter_names(cfg: SimConfig):
 
 def path_kernels(cfg: SimConfig) -> list:
     """The kernels a substep under `cfg` launches on the card: the V-cycle's
-    under a multigrid preconditioner, and under the "pallas" engine its
-    scatter and its gathers of two grids (pass A) and one (pass B), and
-    gather_rows8 under the kernel pushback."""
+    under a multigrid preconditioner, the viscosity operator (the scenes of
+    these paths are viscous: _main_path_failures fails a path that ran no
+    viscosity solve), and under the "pallas" engine its scatter and its
+    gathers of two grids (pass A) and one (pass B), and gather_rows8 under
+    the kernel pushback."""
     pallas = cfg.particle_engine == "pallas"
     names = ([_scatter_names(cfg)[0], "gather_mac", "gather_mac_one_grid"]
              if pallas else [])
     if "multigrid" in (cfg.pressure_preconditioner,
                        cfg.viscosity_preconditioner):
         names += ["mg_down", "mg_up"]
+    names.append("viscosity_operator")
     if pallas and cfg.pallas_pushback == "kernel":
         names.append("gather_rows8")
     return names
@@ -733,6 +742,8 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
 
     # K3 / K4 at every level of both solves' hierarchies
     records.update(_vcycle_records(cfg, dev, gen))
+    # K13 on the grid's three face shapes
+    records["viscosity_operator"] = _viscosity_operator_record(cfg, dev, gen)
 
     # K5 / K6 over two stale orders of the sorted particles: "falling", one
     # CFL substep of the stale path's fall (its regime: every particle
@@ -1045,6 +1056,57 @@ def _vcycle_records(cfg: SimConfig, dev, gen) -> dict:
     timed["mg_down"][0]["levels"] = levels
     return {name: (checks[name], *timed[name])
             for name in ("mg_down", "mg_up")}
+
+
+def random_viscosity_operator(faces, gen, device):
+    """A coupled viscosity operator on the three face shapes `faces`, as
+    build_viscosity_system leaves it: per component six factor grids in
+    [0, 1) and a diagonal in [1, 7), premasked to a random three quarters
+    of the rows (0 elsewhere; rows on the grid's edges too, whose
+    neighbours out of range the operator reads as 0), and an x of normal
+    values -> (factors, diag, x)."""
+    factors, diag, x = [], [], []
+    for fs in faces:
+        rows = torch.rand(fs, generator=gen, device=device) < 0.75
+        zero = torch.zeros(fs, device=device)
+        factors.append({key: torch.where(
+            rows, torch.rand(fs, generator=gen, device=device), zero)
+            for key in vsolver._KEYS})
+        diag.append(torch.where(
+            rows, 1.0 + 6.0 * torch.rand(fs, generator=gen, device=device),
+            zero))
+        x.append(torch.randn(fs, generator=gen, device=device))
+    return tuple(factors), tuple(diag), tuple(x)
+
+
+def _viscosity_operator_record(cfg: SimConfig, dev, gen) -> tuple:
+    """The record of K13 viscosity_operator for check_kernels: on a random
+    operator at cfg's face shapes (random_viscosity_operator), torch.equal
+    to viscosity_operator_ref with the diagonal (a CG apply) and without
+    it (the build's RHS coupling); the kernel timed back to back and cold,
+    the plain version, and the bound of 27 grids read or written once."""
+    on_card = torch.device(dev).type == "cuda"
+    faces = (cfg.u_shape, cfg.v_shape, cfg.w_shape)
+    factors, diag, x = random_viscosity_operator(faces, gen, dev)
+    checks, y = [], None
+    for label, d in (("diag * x + C(x)", diag), ("C(x)", None)):
+        y = vsolver.viscosity_operator(factors, x, d)
+        checks.append(_equal(label, torch.cat([t.reshape(-1) for t in y]),
+                             torch.cat([t.reshape(-1) for t in
+                                        vsolver.viscosity_operator_ref(
+                                            factors, x, d)])))
+    grids = [g for fac in factors for g in fac.values()]
+    bnd = bound(_nbytes(*grids, *diag, *x, *y),
+                30 * sum(t.numel() for t in x))
+    flush_buf = torch.empty(_FLUSH_BYTES // 4 if on_card else 1, device=dev)
+    times = _level_times(
+        lambda: vsolver.viscosity_operator(factors, x, diag),
+        lambda: vsolver.viscosity_operator_ref(factors, x, diag),
+        flush_buf.zero_, on_card, bnd)
+    del flush_buf
+    times = {k: times[k] for k in ("ms", "ms_cold", "plain_ms",
+                                   "cold_over_bound")}
+    return checks, {**times, "library_ms": None}, bnd
 
 
 def _level_times(kern, plain, flush, on_card, bnd) -> dict:
@@ -1738,6 +1800,20 @@ def _sharded_kernels(cfg: SimConfig, spec) -> tuple:
     return (k5,) + SHARDED_KERNELS[1:]
 
 
+def sharded_launches(kernels, d, n_slabs: int) -> dict:
+    """The launches of each kernel that a viscous sharded frame with
+    diagnostics `d` makes on the card: each of `kernels` once per slab and
+    substep; the viscosity operator once per slab and viscosity iteration,
+    and twice more per slab and substep (the build's RHS coupling and the
+    warm start's residual); no other kernel."""
+    want = dict.fromkeys(launch_counts(), 0)
+    for k in kernels:
+        want[k] = n_slabs * d.substeps
+    want["viscosity_operator"] = n_slabs * (d.viscosity_iterations
+                                            + 2 * d.substeps)
+    return want
+
+
 def _sharded_frame_line(d, launches, counts, substeps_s=None) -> dict:
     line = {k: getattr(d, k) for k in (
         "substeps", "pressure_iterations", "viscosity_iterations",
@@ -1799,7 +1875,8 @@ def run_sharded_path(device, res: int, frames: int,
     frame is held against it (compare_sharded). Every frame must keep its
     residuals under their tolerances, lose no particle to migration and,
     on the card, launch each of the path's kernels (_sharded_kernels) once
-    per slab and substep and no other kernel. The launch and collective
+    per slab and substep, the viscosity operator as sharded_launches counts
+    and no other kernel. The launch and collective
     counts are set to 0 just before the first sharded frame; each frame's
     line carries its own (per substep). Returns the frames' lines, the
     totals, substeps/s over the timed frames, peak memory and `failures`."""
@@ -1867,11 +1944,10 @@ def run_sharded_path(device, res: int, frames: int,
             failures.append(f"frame {frame}: {d.migration_lost} particles "
                             "lost to migration")
         if dev.type == "cuda":
-            for k, v in launches.items():
-                want = n_slabs * d.substeps if k in kernels else 0
-                if v != want:
-                    failures.append(f"frame {frame}: kernel {k} launched {v} "
-                                    f"times, not {want}")
+            want = sharded_launches(kernels, d, n_slabs)
+            failures += [f"frame {frame}: kernel {k} launched {v} times, "
+                         f"not {want[k]}"
+                         for k, v in launches.items() if v != want[k]]
     pos, _ = sh.gather_particles(ss)
     if pos.shape[0] != n:
         failures.append(f"{pos.shape[0]} particles at the end, not {n}")

@@ -3,17 +3,21 @@
 Counterpart of flipviscosity3d_tpu/solvers/viscosity.py (reference
 viscositysolver.cpp:41-727): face states, the 7 control-volume fraction
 grids, the coupled U/V/W system with solid-Dirichlet velocities moved to the
-RHS, PCG with a relative inf-norm tolerance, and the write-back.
+RHS, PCG with a relative inf-norm tolerance, and the write-back. The
+coupled operator (`viscosity_operator`) launches the CUDA kernel K13 for
+CUDA tensors; `_apply_coupling` is its plain version and the CPU path.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from ..config import SimConfig
 from ..ops.grids import shifted_read
 from ..ops.levelset import volume_fraction_cube
@@ -224,8 +228,10 @@ def build_viscosity_system(u, v, w, volumes: VolumeGrids, states: FaceStates,
         vols.append(vol_face)
 
     # RHS: vol*vel minus the coupling applied to solid-Dirichlet velocities
-    cu, cv, cw = _apply_coupling(
-        factors, *(vel * s.to(torch.float32) for vel, s in zip(vels, solids)))
+    dirichlet = tuple(vel * s.to(torch.float32)
+                      for vel, s in zip(vels, solids))
+    with trace.span("viscosity_operator"):
+        cu, cv, cw = viscosity_operator(factors, dirichlet)
     rhs = tuple(
         torch.where(m, vol * vel - c, torch.zeros_like(vel))
         for m, vol, vel, c in zip(in_mat, vols, vels, (cu, cv, cw)))
@@ -273,12 +279,90 @@ def _apply_coupling(factors, xu, xv, xw):
     return yu, yv, yw
 
 
+# a component's factor grids, in the order K13 takes them
+_KEYS = ("r", "l", "t", "b", "f", "k")
+
+
+def viscosity_operator_ref(factors, x, diag=None):
+    """Plain version of viscosity_operator: diag * x + C(x), C(x) by
+    _apply_coupling; C(x) alone where `diag` is None."""
+    c = _apply_coupling(factors, *x)
+    if diag is None:
+        return c
+    return tuple(d * xi + ci for d, xi, ci in zip(diag, x, c))
+
+
+# csrc/visc_operator.cu's column tile (TJ x TK, one thread each) and the
+# blocks of 256 threads an SM holds at once (BLOCKS_PER_SM: 64 registers a
+# thread)
+_TILE_J, _TILE_K = 8, 32
+_BLOCKS_PER_SM = 4
+# waves of blocks a launch should give where its planes allow, so that the
+# last, partly filled wave costs little
+_WAVES = 8
+# the fewest planes a block marches through: each block also loads x of the
+# plane below its chunk and of the one above
+_MIN_CHUNK = 4
+
+
+def plane_chunk(shape, sms: int) -> int:
+    """The planes each block of K13 marches through over the union domain
+    `shape` (I, J, K) on a card of `sms` SMs: as many as still give _WAVES
+    waves of blocks, and at least _MIN_CHUNK."""
+    ni, nj, nk = shape
+    tiles = -(-nj // _TILE_J) * -(-nk // _TILE_K)
+    chunks = -(-(_WAVES * _BLOCKS_PER_SM * sms) // tiles)
+    return max(_MIN_CHUNK, -(-ni // chunks))
+
+
+_ARGS = (ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+         _build.I, _build.P)
+
+
+def viscosity_operator(factors, x, diag=None):
+    """K13, the coupled operator: (yu, yv, yw) = diag * x + C(x) on x = (xu,
+    xv, xw), C the 14 couplings a row of _apply_coupling; C(x) alone where
+    `diag` is None. `factors` holds a dict of _KEYS a component, premasked
+    grids of that component's shape, as `diag` does. Takes the plain
+    version for CPU tensors and launches the CUDA kernel
+    (csrc/visc_operator.cu, bit-equal to it) for CUDA tensors; there is no
+    fallback between the two."""
+    if _build.on_cpu(x[0], "viscosity_operator"):
+        return viscosity_operator_ref(factors, x, diag)
+    ptrs, dims, y = [], [], []
+    for c, (xc, fc) in enumerate(zip(x, factors)):
+        if xc.ndim != 3 or xc.numel() >= 1 << 31:
+            raise ValueError(
+                f"x[{c}]: expected a 3-D grid of fewer than 2^31 cells (the "
+                f"kernel's 32-bit offsets), got shape {tuple(xc.shape)}")
+        _build.require(xc, f"x[{c}]", torch.float32)
+        grids = {f"factors[{c}][{key!r}]": fc[key] for key in _KEYS}
+        if diag is not None:
+            grids[f"diag[{c}]"] = diag[c]
+        for name, g in grids.items():
+            _build.require(g, name, torch.float32, xc.shape)
+        yc = torch.empty_like(xc)
+        # x, the six factors, diag (null without it), y
+        ptrs += [xc.data_ptr(), *(g.data_ptr() for g in grids.values()),
+                 *([None] if diag is None else []), yc.data_ptr()]
+        dims += xc.shape
+        y.append(yc)
+    union = tuple(max(dims[a::3]) for a in range(3))
+    _build.launch("flip3d_visc_operator", _ARGS,
+                  (ctypes.c_void_p * 27)(*ptrs), (ctypes.c_int * 9)(*dims),
+                  plane_chunk(union, _build.sm_count(x[0])))
+    _build.count(viscosity_operator)
+    return tuple(y)
+
+
+viscosity_operator.launches = 0
+
+
 def apply_viscosity_matrix(sys: ViscositySystem, x):
-    """Coupled operator apply; coefficients are premasked to the rows."""
-    xu, xv, xw = x
-    cu, cv, cw = _apply_coupling(sys.factors, xu, xv, xw)
-    return (sys.diag[0] * xu + cu, sys.diag[1] * xv + cv,
-            sys.diag[2] * xw + cw)
+    """Coupled operator apply (viscosity_operator); coefficients are
+    premasked to the rows."""
+    with trace.span("viscosity_operator"):
+        return viscosity_operator(sys.factors, tuple(x), sys.diag)
 
 
 def solve_viscosity(sys: ViscositySystem, cfg: SimConfig, warm_start=None):

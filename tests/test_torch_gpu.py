@@ -17,6 +17,7 @@ from flipviscosity3d_torch.scripts import gather_perf_probe as probe
 from flipviscosity3d_torch.scripts import pallas_hw_check
 from flipviscosity3d_torch.scripts import pallas_particle_proto as proto
 from flipviscosity3d_torch.solvers import multigrid as mg
+from flipviscosity3d_torch.solvers import viscosity as vs
 
 # K3 / K4: every level above the coarsest of both hierarchies at 32^3, and
 # ragged shapes drawn from I in {1, 2, 3, 17}, J and K in {1, 7, 31, 33, 65},
@@ -50,7 +51,8 @@ def test_kernels_match_plain_versions(cuda):
         "scatter_p2g_table_stale", "gather_rows8",
         "scatter_p2g_table_folded", "scatter_p2g_table_stale_folded",
         "gather_rows", "detile", "scatter_revisit", "gather_revisit",
-        "tile_scatter", "tile_gather", "gather_mac_one_grid"]
+        "tile_scatter", "tile_gather", "gather_mac_one_grid",
+        "viscosity_operator"]
     for r in records:
         assert r["ok"], r
         assert r["bound_by"] in ("bytes", "operations")
@@ -175,10 +177,10 @@ def test_gather_mac_orders_match_plain_version(cuda):
 
 @pytest.mark.gpu
 def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
-    """The three main paths at 32^3 launch the six unfolded kernels and K2
-    with one grid (pass B); the CLI's paths with the large-grid threshold
-    lowered to 32^3 launch the two folded ones; the hardware-check path
-    launches the four kernels of the column path."""
+    """The three main paths at 32^3 launch the six unfolded kernels, K2
+    with one grid (pass B) and K13; the CLI's paths with the large-grid
+    threshold lowered to 32^3 launch the two folded ones; the
+    hardware-check path launches the four kernels of the column path."""
     launched = set()
     for _, dt, lift, overrides in smoke.MAIN_PATHS:
         result = smoke.run_main_path(cuda, 32, 1, dt=dt, lift=lift,
@@ -186,7 +188,7 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
         assert result["failures"] == []
         launched |= {k for k, c in result["launches"].items() if c > 0}
     assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:6]} | {
-        "gather_mac_one_grid"}
+        "gather_mac_one_grid", "viscosity_operator"}
     monkeypatch.setattr(pp, "FOLD_CELLS", 32 ** 3)
     for name, dt, lift, overrides in smoke.MAIN_PATHS[:2]:
         result = smoke.run_scene_path(cuda, tmp_path, name, 32, 1, dt=dt,
@@ -194,7 +196,7 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
         assert result["failures"] == []
         launched |= {k for k, c in result["launches"].items() if c > 0}
     assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:8]} | {
-        "gather_mac_one_grid"}
+        "gather_mac_one_grid", "viscosity_operator"}
     monkeypatch.undo()
     result = smoke.run_hw_check(cuda, 32, 65_536, 64, 30_000,
                                 log=lambda line: None)
@@ -207,7 +209,7 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
 @pytest.mark.gpu
 def test_table_stream_and_proto_paths_and_kernels(cuda):
     """The bench run at 32^3 on the table and stream engines launches the
-    V-cycle's kernels K3 and K4 and no particle kernel; the prototype's path
+    solvers' kernels K3, K4 and K13 and no particle kernel; the prototype's path
     at 32^3 launches K11 and K12 and its checks pass; K11 and K12 match
     their plain versions at the prototype's 128^3 shapes
     (_check_proto_kernels_at_128)."""
@@ -217,7 +219,7 @@ def test_table_stream_and_proto_paths_and_kernels(cuda):
         assert result["failures"] == [], name
         assert result["sim"].cfg.particle_engine == name
         assert {k for k, c in result["launches"].items() if c > 0} == {
-            "mg_down", "mg_up"}, name
+            "mg_down", "mg_up", "viscosity_operator"}, name
     result = smoke.run_proto(cuda, 32, log=lambda line: None)
     assert result["failures"] == [] and result["result"]["ok"]
     assert {k for k, c in result["launches"].items() if c > 0} == set(
@@ -413,7 +415,8 @@ def test_traced_frame_times_its_stages_on_the_stream(cuda, tmp_path):
     stages = ("pass_a", "liquid_sdf", "p2g_combine", "grid_update",
               "extrapolate", "viscosity_build", "viscosity_solve",
               "viscosity_apply", "pressure_build", "pressure_solve",
-              "pressure_apply", "pcg.apply_A", "pcg.apply_M", "g2p",
+              "pressure_apply", "pcg.apply_A", "pcg.apply_M",
+              "viscosity_operator", "g2p",
               "midpoint_sample", "pushback", "substep", "advance")
     assert all(st[k] > 0 for k in stages), st
     eps = 1e-2   # ms: two timing events' resolution, many times over
@@ -480,6 +483,58 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         proto.tile_gather(spans, payload, cols.double())
     with pytest.raises(ValueError):
         proto.tile_gather(spans, payload.t().contiguous().t(), cols)
+    factors, diag, x = smoke.random_viscosity_operator(
+        VISC_SHAPES["cube"], torch.Generator(device=cuda), cuda)
+    with pytest.raises(ValueError):                      # f64 x
+        vs.viscosity_operator(factors, (x[0].double(),) + x[1:], diag)
+    with pytest.raises(ValueError):                      # f64 diag
+        vs.viscosity_operator(factors, x, (diag[0].double(),) + diag[1:])
+    cpu_factor = [dict(f) for f in factors]
+    cpu_factor[1]["t"] = cpu_factor[1]["t"].cpu()
+    with pytest.raises(ValueError):                      # a CPU factor
+        vs.viscosity_operator(cpu_factor, x, diag)
+    with pytest.raises(ValueError):                      # CUDA x, CPU x
+        vs.viscosity_operator(factors, (x[0], x[1].cpu(), x[2]), diag)
+    with pytest.raises(ValueError):                      # non-contiguous
+        vs.viscosity_operator(factors, (x[0], x[1], x[2].transpose(0, 1)),
+                              diag)
+    with pytest.raises(ValueError):                      # a factor's shape
+        vs.viscosity_operator(
+            [dict(f, r=f["r"][:-1].contiguous()) for f in factors], x, diag)
+    with pytest.raises(ValueError):                      # not 3-D
+        vs.viscosity_operator(factors, (x[0][None],) + x[1:], diag)
+
+
+def _faces(i, j, k):
+    return ((i + 1, j, k), (i, j + 1, k), (i, j, k + 1))
+
+
+# K13: a small cube, an odd grid, the slab shapes of a 64^3 grid in 4 slabs
+# as shard_step hands them (B + 2H = 28 rows on every component), and the
+# 128^3 bench grid
+VISC_SHAPES = {"cube": _faces(8, 8, 8), "odd": _faces(13, 18, 11),
+               "slab": ((28, 64, 64), (28, 65, 64), (28, 64, 65)),
+               "bench128": _faces(128, 128, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(VISC_SHAPES))
+def test_viscosity_operator_equals_its_plain_version(cuda, name):
+    """K13 torch.equal to viscosity_operator_ref on a random premasked
+    operator, with the diagonal (a CG apply) and without it (the build's
+    RHS coupling), and counted once a launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(13)
+    factors, diag, x = smoke.random_viscosity_operator(VISC_SHAPES[name],
+                                                       gen, cuda)
+    before = vs.viscosity_operator.launches
+    for d in (diag, None):
+        got = vs.viscosity_operator(factors, x, d)
+        want = vs.viscosity_operator_ref(factors, x, d)
+        for c, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape
+            assert torch.equal(g, w), (name, c, d is None)
+    assert vs.viscosity_operator.launches == before + 2
 
 
 def _level_inputs(shape, gen, dev):
@@ -569,9 +624,9 @@ def test_sharded_pallas_step_on_the_card_matches_the_cpu(cuda, n_slabs):
     assert g_d.bucket_overflow == c_d.bucket_overflow
     assert abs(g_d.pressure_iterations - c_d.pressure_iterations) <= 1
     assert abs(g_d.viscosity_iterations - c_d.viscosity_iterations) <= 1
+    want = smoke.sharded_launches(smoke.SHARDED_KERNELS, g_d, n_slabs)
     for k, v in launches.items():
-        want = n_slabs * g_d.substeps if k in smoke.SHARDED_KERNELS else 0
-        assert v == want, k
+        assert v == want[k], k
     g_pos, _ = sh.gather_particles(g_ss)
     c_pos, _ = sh.gather_particles(c_ss)
     assert g_pos.shape == c_pos.shape

@@ -1,7 +1,7 @@
 """The port's own tracing (utils/trace.py) on the CPU at 16^3: the spans a
 frame emits under torch.profiler and how they nest, that nothing is
 recorded and nothing changes without a profiler, the host-read counter
-against its formula, and the benchmark's five readers of stages and host
+against its formula, and the benchmark's six readers of stages and host
 reads on hand-built runs."""
 
 import dataclasses
@@ -32,6 +32,9 @@ GRID = ("extrapolate", "viscosity_any", "viscosity_build", "viscosity_solve",
         "viscosity_apply", "pressure_build", "pressure_solve",
         "pressure_apply")
 PCG = ("pcg.apply_A", "pcg.apply_M", "pcg.read", "pcg.converged")
+# each apply of the coupled viscosity operator: the build's RHS coupling
+# and, inside pcg.apply_A, the warm start's residual and each iteration's
+OPERATOR = ("viscosity_operator",)
 FRAME = ("advance", "cfl_read", "substep", "frame_reads", "frame.pressure",
          "frame.viscosity", "frame.liquid_cells", "frame.counts")
 
@@ -76,7 +79,7 @@ def scene(tmp_path_factory):
 
 
 def _names(engine):
-    names = set(STAGES + GRID + PCG + FRAME)
+    names = set(STAGES + GRID + PCG + OPERATOR + FRAME)
     if engine == "pallas":
         names.add("frame.plan_visits")
     else:
@@ -116,6 +119,9 @@ def test_traced_frame_emits_the_documented_spans(scene, engine):
     nested(STAGES, ("substep",))
     nested(GRID, ("grid_update",))
     nested(PCG, ("viscosity_solve", "pressure_solve"))
+    nested(OPERATOR, ("viscosity_build", "pcg.apply_A"))
+    assert len(by_name["viscosity_operator"]) == \
+        diag.viscosity_iterations + 2 * diag.substeps
     nested([n for n in by_name if n.startswith("frame.")], ("frame_reads",))
     assert len(by_name["substep"]) == diag.substeps
     assert len(by_name["advance"]) == 1
@@ -206,13 +212,15 @@ def _hand_built():
         "viscosity_solve": _stage(30.0), "viscosity_apply": _stage(1.0),
         "pressure_build": _stage(2.0), "pressure_solve": _stage(10.0),
         "pressure_apply": _stage(1.0), "extrapolate": _stage(6.0),
+        "viscosity_operator": _stage(12.0),
         "substep": _stage(80.0), "advance": _stage(85.0)})
     b = StepDiagnostics(substeps=1, host_reads={"cfl_read": 1, "pcg.read": 17},
                         stages={
         "pass_a": _stage(1.0), "liquid_sdf": _stage(2.0),
         "g2p": _stage(3.0), "midpoint_sample": _stage(1.0),
         "pushback": _stage(0.5), "grid_update": _stage(20.0),
-        "viscosity_solve": _stage(9.0), "pressure_solve": _stage(5.5)})
+        "viscosity_solve": _stage(9.0), "viscosity_operator": _stage(4.5),
+        "pressure_solve": _stage(5.5)})
     return a, b
 
 
@@ -222,12 +230,13 @@ def _hand_built():
     ("solver.pressure_ms_per_substep", (13.0 + 5.5) / 3),
     ("step.grid_ms_per_substep", ((60.0 - 48.0) + (20.0 - 14.5)) / 3),
     ("step.host_reads_per_substep", (42 + 18) / 3),
+    ("solver.viscosity_operator_ms_per_substep", (12.0 + 4.5) / 3),
 ])
 def test_readers_on_a_hand_built_run(name, want):
     """Each reader sums its spans' stream time (or the reads) over the
     frames and divides by the substeps; None where a frame has no stages
-    (untraced) or the program lacks the field, and the viscosity reader
-    None where no viscosity solve ran."""
+    (untraced) or the program lacks the field, and the two viscosity
+    readers None where no viscosity solve ran."""
     read = _reader(name)
     a, b = _hand_built()
     assert read(_run(a, b)) == pytest.approx(want, rel=1e-12)
@@ -237,11 +246,26 @@ def test_readers_on_a_hand_built_run(name, want):
         assert read(_run(StepDiagnostics(substeps=2))) == 0
         return
     assert read(_run(a, StepDiagnostics(substeps=1))) is None
-    if name == "solver.viscosity_ms_per_substep":
+    if name in ("solver.viscosity_ms_per_substep",
+                "solver.viscosity_operator_ms_per_substep"):
         inviscid = dataclasses.replace(a, stages={
             k: s for k, s in a.stages.items()
             if not k.startswith("viscosity")})
         assert read(_run(inviscid)) is None
+
+
+def test_operator_reader_is_none_without_its_span():
+    """The operator's reader on frames of a program that does not span the
+    operator (stages, a viscosity solve, no viscosity_operator): None; on
+    frames of which only some hold the span, those frames' stream ms over
+    all substeps."""
+    read = _reader("solver.viscosity_operator_ms_per_substep")
+    a, b = _hand_built()
+    bare = [dataclasses.replace(d, stages={
+        k: s for k, s in d.stages.items() if k != "viscosity_operator"})
+        for d in (a, b)]
+    assert read(_run(*bare)) is None
+    assert read(_run(a, bare[1])) == pytest.approx(12.0 / 3, rel=1e-12)
 
 
 def test_device_busy_counts_overlapping_streams_once():
