@@ -63,6 +63,11 @@ class StepDiagnostics:
     # tolerance once converged; 0 where the solve did not run).
     pressure_tolerance: float = 0.0
     viscosity_tolerance: float = 0.0
+    # The port's additions: the substeps whose viscosity CG ran, and those
+    # of its solves whose convergence read (site "pcg.converged") was
+    # false, i.e. that stopped at viscosity_solve_max_iterations.
+    viscosity_solves: int = 0
+    viscosity_unconverged: int = 0
     # The port's additions: substeps that ran pass A "stale" without a
     # re-sort (0 under pass A "sort"), and the particle-substeps that the
     # pass-A, midpoint and pushback visit plans left uncovered (each a part

@@ -106,6 +106,7 @@ def _grid_update(state: SimState, liquid_phi, p2g_sums, dt: float,
 
         # viscosity (fluidsimulation.cpp:170-196), skipped when all zero
         visc_iters, visc_res, visc_tol = 0, 0.0, 0.0
+        visc_solves = visc_unconverged = 0
         if trace.read("viscosity_any", (state.viscosity > 0).any()):
             with trace.span("viscosity_build"):
                 volumes = vsolver.compute_volume_grids(liquid_phi, cfg)
@@ -121,6 +122,7 @@ def _grid_update(state: SimState, liquid_phi, p2g_sums, dt: float,
                     u, v, w, vsys, result, cfg)
             visc_iters, visc_res = result.iterations, result.residual
             visc_tol = result.tol
+            visc_solves, visc_unconverged = 1, int(not result.converged)
 
         # pressure projection (fluidsimulation.cpp:522-531)
         with trace.span("pressure_build"):
@@ -151,6 +153,8 @@ def _grid_update(state: SimState, liquid_phi, p2g_sums, dt: float,
             viscosity_iterations=visc_iters,
             viscosity_residual=visc_res,
             viscosity_tolerance=visc_tol,
+            viscosity_solves=visc_solves,
+            viscosity_unconverged=visc_unconverged,
             liquid_cells=fluid.sum(),
         )
         return new, saved, solver_diag
@@ -516,6 +520,8 @@ def advance(state: SimState, dt: float, cfg: SimConfig):
             diag.viscosity_iterations += d["viscosity_iterations"]
             diag.viscosity_residual = d["viscosity_residual"]
             diag.viscosity_tolerance = d["viscosity_tolerance"]
+            diag.viscosity_solves += d["viscosity_solves"]
+            diag.viscosity_unconverged += d["viscosity_unconverged"]
             diag.max_velocity = max(diag.max_velocity, float(maxvel))
             diag.liquid_cells = d["liquid_cells"]
             for k, v in counts.items():

@@ -426,6 +426,7 @@ def _substep(pos, vel, alive, u, v, w, static, dt: float, cfg: SimConfig,
     # ---------------- viscosity ----------------
     owned = _owned_rows(rows, spec, dev)
     visc_iters, visc_res, visc_tol = 0, zero_i.float(), zero_i.float()
+    visc_solves = visc_unconverged = 0
     # the switch must be the same on every rank (collectives inside)
     if bool(group.pmax(viscosity.max()) > 0):
         volumes = vsolver.compute_volume_grids(liquid_phi, cfg)
@@ -448,14 +449,16 @@ def _substep(pos, vel, alive, u, v, w, static, dt: float, cfg: SimConfig,
             precon = jacobi_preconditioner(vsys.diag)
         result = pcg(
             lambda x: vsolver.apply_viscosity_matrix(vsys, tuple(exch(x))),
-            vsys.rhs, precon, visc_tol, cfg.viscosity_solve_max_iterations,
-            x0=warm, group=group, reduce_mask=(owned,) * 3)
+            vsys.rhs, vsolver.spanned_preconditioner(precon), visc_tol,
+            cfg.viscosity_solve_max_iterations, x0=warm, group=group,
+            reduce_mask=(owned,) * 3)
         if result.converged or float(result.residual) < \
                 cfg.viscosity_acceptable_error:
             vel_g = [torch.where(m, x, torch.zeros_like(x))
                      for m, x in zip(vsys.in_mat, result.x)]
         vel_g = exch(vel_g)
         visc_iters, visc_res = result.iterations, result.residual
+        visc_solves, visc_unconverged = 1, int(not result.converged)
         del vsys, volumes, precon, result
 
     # ---------------- pressure ----------------
@@ -572,7 +575,9 @@ def _substep(pos, vel, alive, u, v, w, static, dt: float, cfg: SimConfig,
                   pressure_residual=pres.residual, pressure_tolerance=ptol,
                   viscosity_iterations=visc_iters,
                   viscosity_residual=visc_res,
-                  viscosity_tolerance=visc_tol)
+                  viscosity_tolerance=visc_tol,
+                  viscosity_solves=visc_solves,
+                  viscosity_unconverged=visc_unconverged)
     return new_pos, new_vel, new_alive, u, v, w, counts, solves
 
 
@@ -758,6 +763,8 @@ def _advance_local(pos, vel, alive, u, v, w, static, dt, cfg: SimConfig,
         d.substeps += 1
         d.pressure_iterations += solves["pressure_iterations"]
         d.viscosity_iterations += solves["viscosity_iterations"]
+        d.viscosity_solves += solves["viscosity_solves"]
+        d.viscosity_unconverged += solves["viscosity_unconverged"]
         for k in ("pressure_residual", "pressure_tolerance",
                   "viscosity_residual", "viscosity_tolerance"):
             setattr(d, k, solves[k])

@@ -365,6 +365,18 @@ def apply_viscosity_matrix(sys: ViscositySystem, x):
         return viscosity_operator(sys.factors, tuple(x), sys.diag)
 
 
+def spanned_preconditioner(apply_M):
+    """The viscosity solve's preconditioner with each apply spanned
+    "viscosity_precond" (inside pcg.apply_M, which the pressure solve's
+    V-cycles share): iterations + 1 calls a solve."""
+
+    def apply(r):
+        with trace.span("viscosity_precond"):
+            return apply_M(r)
+
+    return apply
+
+
 def solve_viscosity(sys: ViscositySystem, cfg: SimConfig, warm_start=None):
     """PCG on the coupled system, tol = rtol * ||rhs||_inf; `warm_start`
     (the pre-solve velocities) is masked to the rows."""
@@ -381,8 +393,9 @@ def solve_viscosity(sys: ViscositySystem, cfg: SimConfig, warm_start=None):
         precon = viscosity_mg_preconditioner(sys, cfg)
     else:
         precon = jacobi_preconditioner(sys.diag)
-    return pcg(lambda x: apply_viscosity_matrix(sys, x), sys.rhs, precon,
-               tol, cfg.viscosity_solve_max_iterations, x0=x0)
+    return pcg(lambda x: apply_viscosity_matrix(sys, x), sys.rhs,
+               spanned_preconditioner(precon), tol,
+               cfg.viscosity_solve_max_iterations, x0=x0)
 
 
 def apply_viscosity_solution(u, v, w, sys: ViscositySystem, result, cfg):

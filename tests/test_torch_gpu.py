@@ -416,7 +416,7 @@ def test_traced_frame_times_its_stages_on_the_stream(cuda, tmp_path):
               "extrapolate", "viscosity_build", "viscosity_solve",
               "viscosity_apply", "pressure_build", "pressure_solve",
               "pressure_apply", "pcg.apply_A", "pcg.apply_M",
-              "viscosity_operator", "g2p",
+              "viscosity_operator", "viscosity_precond", "g2p",
               "midpoint_sample", "pushback", "substep", "advance")
     assert all(st[k] > 0 for k in stages), st
     eps = 1e-2   # ms: two timing events' resolution, many times over

@@ -151,6 +151,8 @@ def test_multigrid_matches_single_device(scene):
         assert sd.substeps == md.substeps
         assert abs(sd.pressure_iterations - md.pressure_iterations) <= 1
         assert abs(sd.viscosity_iterations - md.viscosity_iterations) <= 1
+        assert md.viscosity_solves == sd.viscosity_solves == sd.substeps
+        assert md.viscosity_unconverged == sd.viscosity_unconverged == 0
     pos, _ = sh.gather_particles(ss)
     np.testing.assert_allclose(_sorted(pos), _sorted(state.pos), atol=5e-4)
 
@@ -230,6 +232,7 @@ def test_inviscid_frame_matches_single_device(scene):
     state, (sd,) = _single_frames(arrays, base, 1)
     assert md.substeps == sd.substeps
     assert md.viscosity_iterations == 0 == sd.viscosity_iterations
+    assert md.viscosity_solves == 0 == sd.viscosity_solves
     pos, _ = sh.gather_particles(ss)
     np.testing.assert_allclose(_sorted(pos), _sorted(state.pos), atol=5e-4)
 

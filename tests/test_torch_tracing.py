@@ -35,6 +35,8 @@ PCG = ("pcg.apply_A", "pcg.apply_M", "pcg.read", "pcg.converged")
 # each apply of the coupled viscosity operator: the build's RHS coupling
 # and, inside pcg.apply_A, the warm start's residual and each iteration's
 OPERATOR = ("viscosity_operator",)
+# each apply of the viscosity solve's preconditioner, inside pcg.apply_M
+PRECOND = ("viscosity_precond",)
 FRAME = ("advance", "cfl_read", "substep", "frame_reads", "frame.pressure",
          "frame.viscosity", "frame.liquid_cells", "frame.counts")
 
@@ -79,7 +81,7 @@ def scene(tmp_path_factory):
 
 
 def _names(engine):
-    names = set(STAGES + GRID + PCG + OPERATOR + FRAME)
+    names = set(STAGES + GRID + PCG + OPERATOR + PRECOND + FRAME)
     if engine == "pallas":
         names.add("frame.plan_visits")
     else:
@@ -122,6 +124,10 @@ def test_traced_frame_emits_the_documented_spans(scene, engine):
     nested(OPERATOR, ("viscosity_build", "pcg.apply_A"))
     assert len(by_name["viscosity_operator"]) == \
         diag.viscosity_iterations + 2 * diag.substeps
+    nested(PRECOND, ("pcg.apply_M",))
+    nested(PRECOND, ("viscosity_solve",))
+    assert len(by_name["viscosity_precond"]) == \
+        diag.viscosity_iterations + diag.viscosity_solves
     nested([n for n in by_name if n.startswith("frame.")], ("frame_reads",))
     assert len(by_name["substep"]) == diag.substeps
     assert len(by_name["advance"]) == 1
@@ -290,3 +296,85 @@ def test_sum_stages_adds_frames_by_name():
     assert trace.sum_stages([a, b, StepDiagnostics()]) == {
         "g2p": {"calls": 2, "host_ms": 8.0, "stream_ms": 4.0},
         "pushback": {"calls": 1, "host_ms": 4.0, "stream_ms": 2.0}}
+
+
+def test_viscosity_solves_count_the_viscous_substeps(scene):
+    """viscosity_solves: one a substep whose viscosity CG ran, none at
+    viscosity 0; viscosity_unconverged: none where every solve converged."""
+    cfg, (state, d), _, _, _ = scene("pallas")
+    assert d.viscosity_solves == d.substeps >= 1
+    assert d.viscosity_unconverged == 0
+    assert d.viscosity_residual <= d.viscosity_tolerance
+    _, d0 = tstep.advance(state.replace(
+        viscosity=torch.zeros_like(state.viscosity)), 0.01, cfg)
+    assert d0.substeps >= 1
+    assert d0.viscosity_solves == d0.viscosity_unconverged == 0
+    assert d0.viscosity_iterations == 0
+
+
+def test_viscosity_unconverged_counts_a_capped_solve(scene):
+    """A viscosity CG cut at one iteration stops above its tolerance: each
+    such solve counts in viscosity_unconverged, and no host read is added
+    for the count (only apply_viscosity_solution's residual test)."""
+    cfg, (state, d), _, _, _ = scene("pallas")
+    capped = dataclasses.replace(cfg, viscosity_solve_max_iterations=1)
+    _, dc = tstep.advance(state, 0.01, capped)
+    assert dc.viscosity_iterations == dc.substeps >= 1
+    assert dc.viscosity_unconverged == dc.viscosity_solves == dc.substeps
+    assert dc.viscosity_residual > dc.viscosity_tolerance
+    extra = {k: n - d.host_reads.get(k, 0) for k, n in dc.host_reads.items()
+             if n != d.host_reads.get(k, 0)}
+    assert extra.pop("viscosity_residual") == dc.substeps
+    assert set(extra) <= {"pcg.read", "cfl_read", "viscosity_any",
+                          "frame.counts", "frame.plan_visits"}
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_viscosity_precond_spans_each_apply(scene, engine):
+    """Under the profiler viscosity_precond is in StepDiagnostics.stages with
+    iterations + 1 calls a viscosity solve; pcg.apply_M holds it and the
+    pressure solve's applies besides."""
+    _, _, (_, d), _, _ = scene(engine)
+    calls = d.stages["viscosity_precond"]["calls"]
+    assert calls == d.viscosity_iterations + d.viscosity_solves
+    assert d.stages["pcg.apply_M"]["calls"] == \
+        calls + d.pressure_iterations + d.substeps
+    assert d.stages["viscosity_precond"]["stream_ms"] <= \
+        d.stages["pcg.apply_M"]["stream_ms"]
+
+
+def _traced_run(*diags):
+    from benchmark.run import TracedRun
+    return TracedRun(spec={}, trace={}, diags=list(diags), particles=0,
+                     vcycle_bytes={})
+
+
+@pytest.mark.parametrize("name, want", [
+    ("solver.viscosity_iters_per_solve", (300 + 50) / 3),
+    ("solver.viscosity_unconverged_share", 100.0 * 1 / 3),
+    ("solver.viscosity_precond_ms_per_substep", (40.0 + 5.0) / 4),
+])
+def test_viscosity_readers_on_a_hand_built_traced_run(name, want):
+    """The three readers of the viscosity counters and span on a TracedRun
+    of three frames (2 + 1 viscous substeps, one capped solve, and an
+    inviscid substep): None without a viscosity solve, for a program
+    without the counters (or the span), and, for the span, untraced."""
+    read = _reader(name)
+    a = StepDiagnostics(substeps=2, viscosity_iterations=300,
+                        viscosity_solves=2, viscosity_unconverged=1,
+                        stages={"viscosity_precond": _stage(40.0),
+                                "pcg.apply_M": _stage(55.0)})
+    b = StepDiagnostics(substeps=1, viscosity_iterations=50,
+                        viscosity_solves=1,
+                        stages={"viscosity_precond": _stage(5.0)})
+    dry = StepDiagnostics(substeps=1, stages={"pcg.apply_M": _stage(3.0)})
+    assert read(_traced_run(a, b, dry)) == pytest.approx(want, rel=1e-12)
+    assert read(_traced_run()) is None
+    assert read(_traced_run(dry)) is None
+    parent = [types.SimpleNamespace(
+        substeps=d.substeps, viscosity_iterations=d.viscosity_iterations,
+        stages={k: s for k, s in d.stages.items()
+                if k != "viscosity_precond"}) for d in (a, b)]
+    assert read(_traced_run(*parent)) is None
+    if name.endswith("ms_per_substep"):
+        assert read(_traced_run(dataclasses.replace(a, stages={}))) is None
