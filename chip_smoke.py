@@ -9,13 +9,13 @@
 2. Builds the CUDA kernels from flipviscosity3d_torch/csrc (one nvcc per
    source, all started together, sm_90a) and prints the build time and
    ptxas' register / spill report.
-3. Holds each of the fifteen kernels against its plain PyTorch version
-   on the card, in sixteen records (K2's one-grid launches, pass B's, have
-   their own: gather_mac_one_grid), at the bench scene's shapes (128^3
-   grid, ~4.1M particles; K1 at pallas_split_terms 3 (exact products), 1
-   and 2 (the JAX package's bf16 splits), K2 torch.equal at each of them
-   with two grids at the particles and one grid at midpoints, some outside
-   the domain, K5 at each of them too;
+3. Holds each of the sixteen kernels against its plain PyTorch version
+   on the card, in eighteen records (K2's one-grid launches, pass B's, have
+   their own: gather_mac_one_grid; K14 has one per wrapper), at the bench
+   scene's shapes (128^3 grid, ~4.1M particles; K1 at pallas_split_terms 3
+   (exact products), 1 and 2 (the JAX package's bf16 splits), K2
+   torch.equal at each of them with two grids at the particles and one
+   grid at midpoints, some outside the domain, K5 at each of them too;
    K3 mg_down and K4 mg_up torch.equal at every level of the pressure and
    the viscosity hierarchy, with bf16 and f32 operators, one line per level
    with its times, back to back and with L2 flushed, and its bound;
@@ -30,7 +30,10 @@
    slab of the 4-slab cut, its local grid of B + 2H = 48 rows, its
    key-sorted stream with the dead rows of its capacity, at each split-terms
    setting; K13 viscosity_operator torch.equal on a random premasked
-   operator at the grid's face shapes, with and without its diagonal), and
+   operator at the grid's face shapes, with and without its diagonal; K14
+   compute_volume_grids and build_viscosity_system torch.equal to their
+   plain versions on the bench pool's liquid, each timed back to back and
+   with L2 flushed beside its bound), and
    times the kernel, the plain version and, where one exists, the one
    PyTorch call that computes the same function (for K7 one advanced
    index of the image, for K2 grid_sample per component, with its
@@ -155,7 +158,7 @@
      folded K1 ran and the unfolded K1 did not. One more frame of the same
      simulation then runs under torch.profiler (device busy time over wall
      time, and the largest device rows), and on its final state step 3 is
-     repeated at the 256^3 shapes: all sixteen kernel records against
+     repeated at the 256^3 shapes: all eighteen kernel records against
      their plain versions (257^3 levels, ~35.5M particles, the slab checks
      on a local grid of 80 rows; the plain scatters
      add their values in 16 runs of particles, to fit the card; K7 on the

@@ -139,17 +139,28 @@ KERNELS = (
      "flipviscosity3d_torch/csrc/visc_operator.cu",
      "none: the JAX package's coupled viscosity operator is XLA"
      " (flipviscosity3d_tpu/solvers/viscosity.py::apply_viscosity_matrix)"),
+    (vsolver.compute_volume_grids,
+     "flipviscosity3d_torch/csrc/visc_build.cu",
+     "none: the JAX package's volume fraction grids are XLA"
+     " (flipviscosity3d_tpu/solvers/viscosity.py::compute_volume_grids)"),
+    (vsolver.build_viscosity_system,
+     "flipviscosity3d_torch/csrc/visc_build.cu",
+     "none: the JAX package's viscosity system assembly is XLA"
+     " (flipviscosity3d_tpu/solvers/viscosity.py::build_viscosity_system)"),
 )
 # the kernels of the hardware-check path (run_hw_check)
 HW_CHECK_KERNELS = ("gather_rows", "detile", "scatter_revisit",
                     "gather_revisit")
 # the kernels of the prototype's path (run_proto)
 PROTO_KERNELS = ("tile_scatter", "tile_gather")
+# the viscosity solve's kernels: K13 and K14's two wrappers
+VISCOSITY_KERNELS = ("viscosity_operator", "compute_volume_grids",
+                     "build_viscosity_system")
 # every kernel but the solvers' (the V-cycle's and the viscosity
-# operator): none launches on a "table" or "stream" engine path
+# solve's): none launches on a "table" or "stream" engine path
 _PARTICLE_KERNELS = tuple(
     fn.__name__ for fn, _, _ in KERNELS
-    if fn not in (pm.mg_down, pm.mg_up, vsolver.viscosity_operator))
+    if fn.__name__ not in ("mg_down", "mg_up", *VISCOSITY_KERNELS))
 BENCH_PARTICLES = 4_111_806   # the JAX bench scene's pool at 128^3
 DT = 0.01
 STALE_LIFT = 0.43
@@ -213,14 +224,15 @@ def path_kernels(cfg: SimConfig) -> list:
     these paths are viscous: _main_path_failures fails a path that ran no
     viscosity solve), and under the "pallas" engine its scatter and its
     gathers of two grids (pass A) and one (pass B), and gather_rows8 under
-    the kernel pushback."""
+    the kernel pushback. The viscosity solve's kernels are K13 and K14's
+    two wrappers (VISCOSITY_KERNELS)."""
     pallas = cfg.particle_engine == "pallas"
     names = ([_scatter_names(cfg)[0], "gather_mac", "gather_mac_one_grid"]
              if pallas else [])
     if "multigrid" in (cfg.pressure_preconditioner,
                        cfg.viscosity_preconditioner):
         names += ["mg_down", "mg_up"]
-    names.append("viscosity_operator")
+    names += VISCOSITY_KERNELS
     if pallas and cfg.pallas_pushback == "kernel":
         names.append("gather_rows8")
     return names
@@ -642,7 +654,9 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     "falling" (where K5 is also held at the split terms); K1 and K5 in both
     layouts of their sums, whichever the grid's size would choose
     (_scatter_checks); K7-K10 (_column_records); K11 and K12 on the
-    prototype's own input (_proto_records); K5, K2 and
+    prototype's own input (_proto_records); K13 on a random premasked
+    operator (_viscosity_operator_record); K14's two wrappers on the bench
+    pool's liquid (_visc_build_records); K5, K2 and
     gather_mac_one_grid once more at the sharded paths' inputs, one
     slab's local grid and key-sorted stream with its dead rows, their
     checks added to those records (_slab_checks). Returns
@@ -744,6 +758,8 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     records.update(_vcycle_records(cfg, dev, gen))
     # K13 on the grid's three face shapes
     records["viscosity_operator"] = _viscosity_operator_record(cfg, dev, gen)
+    # K14 on a pool's liquid at the grid's shapes
+    records.update(_visc_build_records(cfg, dev, gen))
 
     # K5 / K6 over two stale orders of the sorted particles: "falling", one
     # CFL substep of the stale path's fall (its regime: every particle
@@ -1107,6 +1123,130 @@ def _viscosity_operator_record(cfg: SimConfig, dev, gen) -> tuple:
     times = {k: times[k] for k in ("ms", "ms_cold", "plain_ms",
                                    "cold_over_bound")}
     return checks, {**times, "library_ms": None}, bnd
+
+
+# the liquid fields K14 is held to its plain version on
+VISC_BUILD_FIELDS = ("pool", "sphere", "flat", "random", "zeros",
+                     "all_liquid", "dry")
+
+
+def visc_build_phi(shape, field, gen, device) -> torch.Tensor:
+    """A liquid phi of `shape` in cells for K14's checks: "pool" the
+    bench pool's box (2.5 cells off the walls, up to 28.5% of J; the max of
+    the signed distances to its six planes), "sphere" the signed distance
+    to a ball of a third of the shortest extent, "flat" a free surface at
+    30% of J, "random" normal values, "zeros" values drawn from {-1, -0.5,
+    0, 0.5, 1} (exact zeros: the ties of < 0 and <= 0, _safe_div's zero
+    branch), "all_liquid" -1 and "dry" +1 everywhere."""
+    if field == "random":
+        return torch.randn(shape, generator=gen, device=device)
+    if field == "zeros":
+        return 0.5 * torch.randint(-2, 3, shape, generator=gen,
+                                   device=device).float()
+    if field in ("all_liquid", "dry"):
+        return torch.full(shape, -1.0 if field == "all_liquid" else 1.0,
+                          device=device)
+    at = torch.meshgrid(*(torch.arange(n, dtype=torch.float32,
+                                       device=device) + 0.5
+                          for n in shape), indexing="ij")
+    if field == "flat":
+        return (at[1] - 0.3 * shape[1]).contiguous()
+    if field == "sphere":
+        r2 = sum((x - n / 2) ** 2 for x, n in zip(at, shape))
+        return (r2.sqrt() - min(shape) / 3).contiguous()
+    top = (shape[0] - 2.5, 0.285 * shape[1], shape[2] - 2.5)
+    planes = [d for x, hi in zip(at, top) for d in (2.5 - x, x - hi)]
+    return torch.stack(planes).amax(dim=0)
+
+
+def visc_build_inputs(phi, faces, gen, device, visc_shape=None) -> tuple:
+    """The rest of build_viscosity_system's inputs around liquid `phi`:
+    velocities of normal values on the face shapes `faces`; solid faces on
+    each component's first and last plane along its own axis and on a
+    random tenth of the others; viscosity nodes of `visc_shape` (phi's
+    shape + 1 unless given) in [1, 5) with a tenth of them 0 -> (u, v, w,
+    FaceStates, viscosity)."""
+    vels, solids = [], []
+    for axis, fs in enumerate(faces):
+        vels.append(torch.randn(fs, generator=gen, device=device))
+        solid = torch.rand(fs, generator=gen, device=device) < 0.1
+        solid.narrow(axis, 0, 1).fill_(True)
+        solid.narrow(axis, fs[axis] - 1, 1).fill_(True)
+        solids.append(solid)
+    visc_shape = visc_shape or tuple(n + 1 for n in phi.shape)
+    visc = 1.0 + 4.0 * torch.rand(visc_shape, generator=gen, device=device)
+    visc[torch.rand(visc_shape, generator=gen, device=device) < 0.1] = 0.0
+    return (*vels, vsolver.FaceStates(*solids), visc)
+
+
+def visc_system_grids(system) -> dict:
+    """A ViscositySystem's outputs by name, each flattened and joined over
+    the components: in_mat, diag, vol, the 18 factors and rhs."""
+    def cat(ts):
+        return torch.cat([t.reshape(-1) for t in ts])
+
+    return {"in_mat": cat(system.in_mat), "diag": cat(system.diag),
+            "vol": cat(system.vol),
+            "factors": cat([f[k] for f in system.factors
+                            for k in vsolver._KEYS]),
+            "rhs": cat(system.rhs)}
+
+
+def _visc_build_records(cfg: SimConfig, dev, gen) -> dict:
+    """The records of K14's two wrappers for check_kernels, on the bench
+    pool's liquid ("pool" of visc_build_phi) at cfg's grid with
+    visc_build_inputs around it: compute_volume_grids' 7 grids and
+    build_viscosity_system's outputs (visc_system_grids) torch.equal to
+    their plain versions; each wrapper timed back to back and cold, the
+    plain version, and the bound of the bytes its inputs and outputs need
+    once (the build's: the velocities, solid masks, volume grids and
+    viscosity read, its outputs written; not K13's Dirichlet velocities and
+    coupling in between)."""
+    on_card = torch.device(dev).type == "cuda"
+    shape = cfg.grid_shape
+    phi = visc_build_phi(shape, "pool", gen, dev)
+    faces = (cfg.u_shape, cfg.v_shape, cfg.w_shape)
+    u, v, w, states, visc = visc_build_inputs(phi, faces, gen, dev)
+    dt = 0.004
+
+    def volumes():
+        return vsolver.compute_volume_grids(phi, cfg)
+
+    def volumes_ref():
+        return vsolver.compute_volume_grids_ref(phi, cfg)
+
+    got, want = volumes(), volumes_ref()
+    grids = [getattr(got, f.name) for f in dataclasses.fields(got)]
+    checks_v = [_equal(f"{f.name} ({'x'.join(map(str, g.shape))})", g,
+                       getattr(want, f.name))
+                for f, g in zip(dataclasses.fields(got), grids)]
+    del want
+
+    def system():
+        return vsolver.build_viscosity_system(u, v, w, got, states, visc, dt,
+                                              cfg)
+
+    def system_ref():
+        return vsolver.build_viscosity_system_ref(u, v, w, got, states, visc,
+                                                  dt, cfg)
+
+    out, ref = visc_system_grids(system()), visc_system_grids(system_ref())
+    checks_s = [_equal(name, out[name], ref[name]) for name in out]
+    solids = (states.solid_u, states.solid_v, states.solid_w)
+    bnd_v = bound(_nbytes(phi, *grids), 0)
+    bnd_s = bound(_nbytes(u, v, w, *solids, *grids, visc, *out.values()), 0)
+    del out, ref
+    flush_buf = torch.empty(_FLUSH_BYTES // 4 if on_card else 1, device=dev)
+    keys = ("ms", "ms_cold", "plain_ms", "cold_over_bound")
+    records = {}
+    for name, checks, kern, plain, bnd in (
+            ("compute_volume_grids", checks_v, volumes, volumes_ref, bnd_v),
+            ("build_viscosity_system", checks_s, system, system_ref, bnd_s)):
+        times = _level_times(kern, plain, flush_buf.zero_, on_card, bnd)
+        records[name] = (checks, {**{k: times[k] for k in keys},
+                                  "library_ms": None}, bnd)
+    del flush_buf
+    return records
 
 
 def _level_times(kern, plain, flush, on_card, bnd) -> dict:
@@ -1805,12 +1945,16 @@ def sharded_launches(kernels, d, n_slabs: int) -> dict:
     diagnostics `d` makes on the card: each of `kernels` once per slab and
     substep; the viscosity operator once per slab and viscosity iteration,
     and twice more per slab and substep (the build's RHS coupling and the
-    warm start's residual); no other kernel."""
+    warm start's residual); K14's volume kernel once per slab and substep
+    and its assembly and RHS kernels, counted on build_viscosity_system,
+    twice; no other kernel."""
     want = dict.fromkeys(launch_counts(), 0)
     for k in kernels:
         want[k] = n_slabs * d.substeps
     want["viscosity_operator"] = n_slabs * (d.viscosity_iterations
                                             + 2 * d.substeps)
+    want["compute_volume_grids"] = n_slabs * d.substeps
+    want["build_viscosity_system"] = 2 * n_slabs * d.substeps
     return want
 
 

@@ -6,6 +6,8 @@ This file imports no JAX, so it also runs on a machine without it:
     python3 -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -52,7 +54,8 @@ def test_kernels_match_plain_versions(cuda):
         "scatter_p2g_table_folded", "scatter_p2g_table_stale_folded",
         "gather_rows", "detile", "scatter_revisit", "gather_revisit",
         "tile_scatter", "tile_gather", "gather_mac_one_grid",
-        "viscosity_operator"]
+        "viscosity_operator", "compute_volume_grids",
+        "build_viscosity_system"]
     for r in records:
         assert r["ok"], r
         assert r["bound_by"] in ("bytes", "operations")
@@ -178,9 +181,10 @@ def test_gather_mac_orders_match_plain_version(cuda):
 @pytest.mark.gpu
 def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
     """The three main paths at 32^3 launch the six unfolded kernels, K2
-    with one grid (pass B) and K13; the CLI's paths with the large-grid
-    threshold lowered to 32^3 launch the two folded ones; the
-    hardware-check path launches the four kernels of the column path."""
+    with one grid (pass B), K13 and K14's two wrappers; the CLI's paths
+    with the large-grid threshold lowered to 32^3 launch the two folded
+    ones; the hardware-check path launches the four kernels of the column
+    path."""
     launched = set()
     for _, dt, lift, overrides in smoke.MAIN_PATHS:
         result = smoke.run_main_path(cuda, 32, 1, dt=dt, lift=lift,
@@ -188,7 +192,7 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
         assert result["failures"] == []
         launched |= {k for k, c in result["launches"].items() if c > 0}
     assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:6]} | {
-        "gather_mac_one_grid", "viscosity_operator"}
+        "gather_mac_one_grid", *smoke.VISCOSITY_KERNELS}
     monkeypatch.setattr(pp, "FOLD_CELLS", 32 ** 3)
     for name, dt, lift, overrides in smoke.MAIN_PATHS[:2]:
         result = smoke.run_scene_path(cuda, tmp_path, name, 32, 1, dt=dt,
@@ -196,7 +200,7 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
         assert result["failures"] == []
         launched |= {k for k, c in result["launches"].items() if c > 0}
     assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:8]} | {
-        "gather_mac_one_grid", "viscosity_operator"}
+        "gather_mac_one_grid", *smoke.VISCOSITY_KERNELS}
     monkeypatch.undo()
     result = smoke.run_hw_check(cuda, 32, 65_536, 64, 30_000,
                                 log=lambda line: None)
@@ -209,9 +213,9 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
 @pytest.mark.gpu
 def test_table_stream_and_proto_paths_and_kernels(cuda):
     """The bench run at 32^3 on the table and stream engines launches the
-    solvers' kernels K3, K4 and K13 and no particle kernel; the prototype's path
-    at 32^3 launches K11 and K12 and its checks pass; K11 and K12 match
-    their plain versions at the prototype's 128^3 shapes
+    solvers' kernels K3, K4, K13 and K14 and no particle kernel; the
+    prototype's path at 32^3 launches K11 and K12 and its checks pass; K11
+    and K12 match their plain versions at the prototype's 128^3 shapes
     (_check_proto_kernels_at_128)."""
     for name, dt, lift, overrides in smoke.ENGINE_PATHS:
         result = smoke.run_main_path(cuda, 32, 1, dt=dt, lift=lift,
@@ -219,7 +223,7 @@ def test_table_stream_and_proto_paths_and_kernels(cuda):
         assert result["failures"] == [], name
         assert result["sim"].cfg.particle_engine == name
         assert {k for k, c in result["launches"].items() if c > 0} == {
-            "mg_down", "mg_up", "viscosity_operator"}, name
+            "mg_down", "mg_up", *smoke.VISCOSITY_KERNELS}, name
     result = smoke.run_proto(cuda, 32, log=lambda line: None)
     assert result["failures"] == [] and result["result"]["ok"]
     assert {k for k, c in result["launches"].items() if c > 0} == set(
@@ -503,6 +507,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
             [dict(f, r=f["r"][:-1].contiguous()) for f in factors], x, diag)
     with pytest.raises(ValueError):                      # not 3-D
         vs.viscosity_operator(factors, (x[0][None],) + x[1:], diag)
+    # K14: inputs on two devices
+    gen = torch.Generator(device=cuda)
+    phi = smoke.visc_build_phi((8, 8, 8), "sphere", gen, cuda)
+    cfg = SimConfig(isize=8, jsize=8, ksize=8, dx=1 / 8)
+    vols = vs.compute_volume_grids(phi, cfg)
+    u, v, w, states, visc = smoke.visc_build_inputs(phi, _faces(8, 8, 8),
+                                                    gen, cuda)
+    with pytest.raises(ValueError):                      # a CPU velocity
+        vs.build_viscosity_system(u, v.cpu(), w, vols, states, visc, 0.01,
+                                  cfg)
+    with pytest.raises(ValueError):                      # a CPU solid mask
+        vs.build_viscosity_system(
+            u, v, w, vols, vs.FaceStates(states.solid_u.cpu(),
+                                         states.solid_v, states.solid_w),
+            visc, 0.01, cfg)
+    with pytest.raises(ValueError):                      # a CPU volume grid
+        vs.build_viscosity_system(
+            u, v, w, dataclasses.replace(vols, center=vols.center.cpu()),
+            states, visc, 0.01, cfg)
+    with pytest.raises(ValueError):                      # CPU viscosity
+        vs.build_viscosity_system(u, v, w, vols, states, visc.cpu(), 0.01,
+                                  cfg)
+    with pytest.raises(ValueError):                      # non-contiguous
+        vs.compute_volume_grids(phi.transpose(0, 1), cfg)
 
 
 def _faces(i, j, k):
@@ -535,6 +563,78 @@ def test_viscosity_operator_equals_its_plain_version(cuda, name):
             assert g.shape == w.shape
             assert torch.equal(g, w), (name, c, d is None)
     assert vs.viscosity_operator.launches == before + 2
+
+
+def _slab_masks(faces, cfg, rank, spec, dev):
+    """The rows' ranges of slab `rank` in the global domain, as
+    shard_step's viscosity build makes them."""
+    from flipviscosity3d_torch.parallel import shard_step as sh
+
+    return tuple(
+        sh._i_range_mask(faces[0][0], 1, cfg.isize, spec, rank, dev)
+        & sh._jk_range_mask(fs, (1, 1), (cfg.jsize, cfg.ksize), dev)
+        for fs in faces)
+
+
+# K14: (liquid phi's shape, face shapes, viscosity's shape, slab rank) on a
+# small cube, an odd grid, the 128^3 bench grid, and the first and an inner
+# slab of a 64^3 grid in 4 slabs as shard_step hands them (B + 2H = 28
+# rows on every component, the nodes one more), with their row masks
+BUILD_CASES = {"cube": ((8, 8, 8), _faces(8, 8, 8), None, None),
+               "odd": ((13, 18, 11), _faces(13, 18, 11), None, None),
+               "bench128": ((128,) * 3, _faces(128, 128, 128), None, None),
+               "slab0": ((28, 64, 64), VISC_SHAPES["slab"], (29, 65, 65), 0),
+               "slab1": ((28, 64, 64), VISC_SHAPES["slab"], (29, 65, 65), 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field", smoke.VISC_BUILD_FIELDS)
+@pytest.mark.parametrize("name", list(BUILD_CASES))
+def test_visc_build_equals_its_plain_version(cuda, name, field):
+    """K14 torch.equal to compute_volume_grids_ref (the 7 grids) and
+    build_viscosity_system_ref (in_mat, diag, vol, the 18 factors and rhs)
+    on the card, each wrapper call counted: one launch of the volume
+    kernel, two of the build (its assembly and RHS kernels)."""
+    from flipviscosity3d_torch.parallel import shard_step as sh
+
+    shape, faces, visc_shape, rank = BUILD_CASES[name]
+    if rank is None:
+        cfg = SimConfig(isize=shape[0], jsize=shape[1], ksize=shape[2],
+                        dx=1.0 / max(shape))
+        masks = None
+    else:
+        cfg = SimConfig(isize=64, jsize=64, ksize=64, dx=1.0 / 64)
+        masks = _slab_masks(faces, cfg, rank,
+                            sh.SlabSpec(n=4, B=16, H=6, cap=0, mig=0), cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(14)
+    phi = smoke.visc_build_phi(shape, field, gen, cuda)
+    before = (vs.compute_volume_grids.launches,
+              vs.build_viscosity_system.launches)
+    got = vs.compute_volume_grids(phi, cfg)
+    want = vs.compute_volume_grids_ref(phi, cfg)
+    for f in dataclasses.fields(got):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        assert g.shape == w.shape and g.dtype == w.dtype, f.name
+        assert torch.equal(g, w), (name, field, f.name)
+    u, v, w, states, visc = smoke.visc_build_inputs(phi, faces, gen, cuda,
+                                                    visc_shape)
+    sys_k = vs.build_viscosity_system(u, v, w, got, states, visc, 0.004, cfg,
+                                      row_masks=masks)
+    sys_p = vs.build_viscosity_system_ref(u, v, w, got, states, visc, 0.004,
+                                          cfg, row_masks=masks)
+    for part in ("in_mat", "diag", "vol", "rhs"):
+        for c, (g, w) in enumerate(zip(getattr(sys_k, part),
+                                       getattr(sys_p, part))):
+            assert g.shape == w.shape and g.dtype == w.dtype, (part, c)
+            assert torch.equal(g, w), (name, field, part, c)
+    for c, (fk, fp) in enumerate(zip(sys_k.factors, sys_p.factors)):
+        assert list(fk) == list(fp) == list(vs._KEYS)
+        for key in vs._KEYS:
+            assert torch.equal(fk[key], fp[key]), (name, field, c, key)
+    assert (vs.compute_volume_grids.launches,
+            vs.build_viscosity_system.launches) == (before[0] + 1,
+                                                    before[1] + 2)
 
 
 def _level_inputs(shape, gen, dev):

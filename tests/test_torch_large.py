@@ -290,12 +290,14 @@ def test_scene_path_reports_the_large_scene_kernels(folds_at_16, tmp_path):
     assert result["failures"] == []
     assert result["path_kernels"] == [
         "scatter_p2g_table_folded", "gather_mac", "gather_mac_one_grid",
-        "mg_down", "mg_up", "viscosity_operator"]
+        "mg_down", "mg_up", "viscosity_operator", "compute_volume_grids",
+        "build_viscosity_system"]
     assert set(result["launches"].values()) == {0}
     stale = dataclasses.replace(run.sim.cfg, **smoke.STALE_PATH)
     assert smoke.path_kernels(stale) == [
         "scatter_p2g_table_stale_folded", "gather_mac", "gather_mac_one_grid",
-        "mg_down", "mg_up", "viscosity_operator", "gather_rows8"]
+        "mg_down", "mg_up", "viscosity_operator", "compute_volume_grids",
+        "build_viscosity_system", "gather_rows8"]
 
 
 def _resting_pool_frames(res, frames, particle_engine="pallas",

@@ -268,10 +268,12 @@ def test_main_path_runs_on_cpu():
         "scatter_p2g_table_folded": 0, "scatter_p2g_table_stale_folded": 0,
         "gather_rows": 0, "detile": 0, "scatter_revisit": 0,
         "gather_revisit": 0, "tile_scatter": 0, "tile_gather": 0,
-        "viscosity_operator": 0}
+        "viscosity_operator": 0, "compute_volume_grids": 0,
+        "build_viscosity_system": 0}
     assert result["path_kernels"] == [
         "scatter_p2g_table", "gather_mac", "gather_mac_one_grid", "mg_down",
-        "mg_up", "viscosity_operator"]
+        "mg_up", "viscosity_operator", "compute_volume_grids",
+        "build_viscosity_system"]
     assert all(f["viscosity_iterations"] > 0 for f in result["frames"])
     # the midpoint plan's demand, per chunk: at least one visit
     assert all(f["plan_demand"] >= 1 for f in result["frames"])
@@ -292,7 +294,8 @@ def test_stale_main_path_runs_on_cpu():
     assert result["substeps"] > 2 and result["stale_substeps"] >= 1
     assert result["path_kernels"] == [
         "scatter_p2g_table_stale", "gather_mac", "gather_mac_one_grid",
-        "mg_down", "mg_up", "viscosity_operator", "gather_rows8"]
+        "mg_down", "mg_up", "viscosity_operator", "compute_volume_grids",
+        "build_viscosity_system", "gather_rows8"]
     assert all(f["plan_demand"] >= 1 for f in result["frames"])
 
 
@@ -308,6 +311,7 @@ def test_bench_sort_main_path_runs_on_cpu():
     assert result["substeps"] >= 2 and result["stale_substeps"] == 0
     assert result["path_kernels"] == [
         "scatter_p2g_table", "gather_mac", "gather_mac_one_grid", "mg_down",
-        "mg_up", "viscosity_operator"]
+        "mg_up", "viscosity_operator", "compute_volume_grids",
+        "build_viscosity_system"]
     assert all(f["plan_demand"] == 0 and f["uncovered_pass_b"] == 0
                for f in result["frames"])
