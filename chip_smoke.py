@@ -96,15 +96,11 @@
      fails unless its residuals hold and its final positions differ from
      those of "bench", the same run under "f32";
    - "stream_repeat" (smoke.run_stream_repeat): the bench scene on the
-     "stream" engine four times from one state, one warm and 2 timed
-     frames each, in turns: with the stream's sums added by index_add_
-     (the form before they were made repeatable), twice as the engine
-     adds them, once more with index_add_, each run's substeps/s printed;
-     the two forms of the sums alone timed on the scene's stream (108
-     sums a particle); then the slab pipeline on "stream" in 4 slabs
-     twice from one state, 1 frame each; fails unless the two runs of
-     each with the engine's sums are torch.equal (positions, velocities,
-     u, v, w; alive per slab) with equal integer diagnostics;
+     "stream" engine twice from one state, one warm and 2 timed frames
+     each, each run's substeps/s printed; then the slab pipeline on
+     "stream" in 4 slabs twice from one state, 1 frame each; fails unless
+     the two runs of each are torch.equal (positions, velocities, u, v,
+     w; alive per slab) with equal integer diagnostics;
    - "placed" (smoke.run_placed_path): the bench scene, its particles
      trimmed to 4,111,260 (shard_state refuses a count that 4 does not
      divide, as jax.device_put does), placed on a LocalGroup of 4
@@ -155,10 +151,8 @@
    - "bench256": the bench scene at 256^3 (~35.5M particles), one warm frame
      and 3 frames of dt = 0.01; at this size the scatter folds its sums
      and the face combine runs in slabs, so the path fails unless the
-     folded K1 ran and the unfolded K1 did not. One more frame of the same
-     simulation then runs under torch.profiler (device busy time over wall
-     time, and the largest device rows), and on its final state step 3 is
-     repeated at the 256^3 shapes: all eighteen kernel records against
+     folded K1 ran and the unfolded K1 did not. On its final state step 3
+     is repeated at the 256^3 shapes: all eighteen kernel records against
      their plain versions (257^3 levels, ~35.5M particles, the slab checks
      on a local grid of 80 rows; the plain scatters
      add their values in 16 runs of particles, to fit the card; K7 on the
@@ -228,6 +222,7 @@ def main() -> int:
     try:
         from flipviscosity3d_torch import _build, smoke
         from flipviscosity3d_torch.scripts import card as read_card
+        from flipviscosity3d_torch.scripts.bench import DT, bench_scene
     except ImportError as e:
         print(f"chip_smoke: the flipviscosity3d_torch package is missing "
               f"beside this script ({e})", file=sys.stderr)
@@ -245,7 +240,7 @@ def main() -> int:
     print(info["log"].strip(), flush=True)
 
     failures = []
-    sim = smoke.bench_scene("cuda", RES)
+    sim = bench_scene("cuda", RES)
     print(f"scene: {RES}^3, {sim.state.pos.shape[0]} particles, set up in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -268,14 +263,14 @@ def main() -> int:
         """One more frame of `sim`, then the unfused route against K2 on
         its state, the grids of the frame before as the second grid."""
         prev = (sim.state.u, sim.state.v, sim.state.w)
-        sim.advance(smoke.DT)
+        sim.advance(DT)
         rec = smoke.check_unfused_route(sim.state, prev, sim.cfg,
                                         log=lambda _: None)
         print(json.dumps({"at": at, **rec, "card": card}), flush=True)
         if not rec["ok"]:
             failures.append(f"the unfused route disagrees with K2 at {at}")
 
-    sim.advance(smoke.DT)
+    sim.advance(DT)
     route(sim, f"{RES}^3")
     del sim
     torch.cuda.empty_cache()
@@ -479,11 +474,6 @@ def main() -> int:
     run = result.pop("run")
     bench_rate[LARGE_RES] = result["substeps_per_s"]
     report("bench256", result)
-    prof = smoke.profile_sim(run.sim, 1, top=12)
-    print(json.dumps({
-        "profile": "the next frame of bench256 under torch.profiler",
-        "busy_over_wall": prof["device_busy_ms"] / prof["wall_ms"],
-        **prof, "card": card}), flush=True)
     route(run.sim, f"{LARGE_RES}^3")
     state, cfg = run.sim.state, run.sim.cfg
     del run, result

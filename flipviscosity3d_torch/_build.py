@@ -139,6 +139,19 @@ def launch(name: str, argtypes: tuple, *args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+# the wrappers whose launches are counted, in the order they registered
+_COUNTED = []
+
+
+def counted(fn):
+    """Register wrapper `fn` as a counted kernel launch: set `fn.launches`
+    to 0 and return `fn` itself, so that a decorated function keeps its
+    name and identity."""
+    fn.launches = 0
+    _COUNTED.append(fn)
+    return fn
+
+
 def count(fn) -> None:
     """Add one to the launch count of wrapper `fn` (thread-safe: the slab
     pipeline launches from several threads)."""
@@ -146,14 +159,39 @@ def count(fn) -> None:
         fn.launches += 1
 
 
-def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (one dtype
-    or a tuple of them) and, if given, `shape`."""
+def launch_counts() -> dict:
+    """{name: launches} of every counted wrapper."""
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def reset_launch_counts() -> None:
+    """Set every counted wrapper's launches to 0."""
+    with _LOCK:
+        for fn in _COUNTED:
+            fn.launches = 0
+
+
+def require(t, name: str, dtype, shape=None, device=None,
+            ndim=None) -> None:
+    """Raise ValueError unless `t` is a contiguous tensor of `dtype` (one
+    dtype or a tuple of them) on `device` (any CUDA device where None) and,
+    if given, of `shape`; with `ndim`, a grid of `ndim` dimensions and
+    fewer than 2^31 cells (the stencil kernels' 32-bit offsets)."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: expected a tensor, got {type(t)}")
+    if device is None:
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"{name}: expected a CUDA tensor, got {t.device}")
+    elif t.device != device:
+        raise ValueError(
+            f"{name}: expected a tensor on {device}, got {t.device}")
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: expected dtype in {dtypes}, got {t.dtype}")
+    if ndim is not None and (t.ndim != ndim or t.numel() >= 1 << 31):
+        raise ValueError(f"{name}: expected a {ndim}-D grid of fewer than "
+                         f"2^31 cells, got shape {tuple(t.shape)}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(
             f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

@@ -96,15 +96,10 @@ def coarse_shape(shape):
 
 
 def _check_level(diag, links, b):
-    if b.ndim != 4:
-        raise ValueError(f"level arrays must be (nb, I, J, K), got {b.shape}")
-    if b.numel() >= 1 << 31:
-        raise ValueError(f"a level of {b.numel()} cells: the kernels index "
-                         "it with 32-bit offsets")
+    _build.require(b, "b", torch.float32, ndim=4)
     _build.require(diag, "diag", _OPERATOR_DTYPES, b.shape)
     for ax, lk in enumerate(links):
         _build.require(lk, f"links[{ax}]", diag.dtype, b.shape)
-    _build.require(b, "b", torch.float32, b.shape)
 
 
 def _suffix(diag):
@@ -149,6 +144,7 @@ _DOWN_ARGS = (_P,) * 5 + (_I,) * 5 + (_F,) + (_P,) * 2 + (_P,)
 _UP_ARGS = (_P,) * 7 + (_I,) * 5 + (_F, _F) + (_P,) + (_P,)
 
 
+@_build.counted
 def mg_down(diag, links, b, omega):
     """One level's DOWN -> (x (nb,I,J,K), rc (nb,ceil(I/2),ceil(J/2),
     ceil(K/2)))."""
@@ -164,10 +160,11 @@ def mg_down(diag, links, b, omega):
         diag.data_ptr(), links[0].data_ptr(), links[1].data_ptr(),
         links[2].data_ptr(), b.data_ptr(), nb, ni, nj, nk, _chunk(b),
         float(omega), x.data_ptr(), rc.data_ptr())
-    mg_down.launches += 1
+    _build.count(mg_down)
     return x, rc
 
 
+@_build.counted
 def mg_up(diag, links, b, x, xc, omega, scale):
     """One level's UP -> x_out (nb,I,J,K)."""
     if _build.on_cpu(b, "mg_up"):
@@ -183,9 +180,5 @@ def mg_up(diag, links, b, x, xc, omega, scale):
         links[2].data_ptr(), b.data_ptr(), x.data_ptr(), xc.data_ptr(),
         nb, ni, nj, nk, _chunk(b), float(omega), float(scale),
         out.data_ptr())
-    mg_up.launches += 1
+    _build.count(mg_up)
     return out
-
-
-mg_down.launches = 0
-mg_up.launches = 0

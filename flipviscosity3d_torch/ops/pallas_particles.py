@@ -395,6 +395,7 @@ def _empty_sums(grid_shape, fold_sums, device):
             SUML if fold_sums else N_P2G)
 
 
+@_build.counted
 def scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
                       fold_sums=None, terms: int = 3):
     """Per-cell P2G sums and liquid-SDF slot table of a tile-key-sorted
@@ -435,16 +436,13 @@ def scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
     return sums, table
 
 
+@_build.counted
 def scatter_p2g_table_folded(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
                              terms: int = 3):
     """scatter_p2g_table with the fold forced, at any grid size; its
     `launches` counts every folded launch of that kernel."""
     return scatter_p2g_table(pos_s, vel_s, key_s, rank, grid_shape, dx, cap,
                              fold_sums=True, terms=terms)
-
-
-scatter_p2g_table.launches = 0
-scatter_p2g_table_folded.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -513,6 +511,7 @@ _STALE_ARGS = (_P,) * 4 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_F,) * 5 + (
     _I,) * 2 + (_P,) * 5 + (_P,)
 
 
+@_build.counted
 def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
                             cap, fold_sums=None, terms: int = 3):
     """scatter_p2g_table over a stream in any order, restricted to the
@@ -566,16 +565,13 @@ def scatter_p2g_table_stale(pos, vel, key, plan: ScatterPlan, grid_shape, dx,
     return sums, table, counts
 
 
+@_build.counted
 def scatter_p2g_table_stale_folded(pos, vel, key, plan: ScatterPlan,
                                    grid_shape, dx, cap, terms: int = 3):
     """scatter_p2g_table_stale with the fold forced, at any grid size; its
     `launches` counts every folded launch of that kernel."""
     return scatter_p2g_table_stale(pos, vel, key, plan, grid_shape, dx, cap,
                                    fold_sums=True, terms=terms)
-
-
-scatter_p2g_table_stale.launches = 0
-scatter_p2g_table_stale_folded.launches = 0
 
 
 def table_fields(table, cap):
@@ -707,6 +703,7 @@ def _exact_inverse(dx) -> float:
     return _f32(1.0 / _f32(dx)) if mantissa == 0.5 else 0.0
 
 
+@_build.counted
 def gather_mac(px, py, pz, keys, grids_u, grids_v, grids_w, dx, grid_shape,
                terms: int = 3):
     """Trilinear MAC samples of n_grids = len(grids_u) in {1, 2} velocity
@@ -749,16 +746,13 @@ def gather_mac(px, py, pz, keys, grids_u, grids_v, grids_w, dx, grid_shape,
     return out
 
 
+@_build.counted
 def gather_mac_one_grid(px, py, pz, keys, grid_u, grid_v, grid_w, dx,
                         grid_shape, terms: int = 3):
     """gather_mac of one grid per component (pass B's midpoint sample); its
     `launches` counts every one-grid launch of that kernel."""
     return gather_mac(px, py, pz, keys, [grid_u], [grid_v], [grid_w], dx,
                       grid_shape, terms)
-
-
-gather_mac.launches = 0
-gather_mac_one_grid.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -776,6 +770,7 @@ def gather_rows8_ref(keys, covered, phi_node, grid_shape):
 _ROWS8_ARGS = (_P,) * 2 + (_I,) + (_P,) + (_I,) * 3 + (_P,) + (_P,)
 
 
+@_build.counted
 def gather_rows8(keys, covered, phi_node, grid_shape):
     """Node SDF corners phi_node[cell + o] for o in NODE_CORNERS (the
     pushback's trilinear corners) of each particle's tile-major home cell
@@ -794,11 +789,8 @@ def gather_rows8(keys, covered, phi_node, grid_shape):
         "flip3d_gather_rows8", _ROWS8_ARGS,
         keys.data_ptr(), covered.data_ptr(), n, phi_node.data_ptr(),
         ni, nj, nk, out.data_ptr())
-    gather_rows8.launches += 1
+    _build.count(gather_rows8)
     return out
-
-
-gather_rows8.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -868,6 +860,7 @@ def from_tile_major(y, grid_shape):
 _DETILE_ARGS = (_P,) + (_I,) * 4 + (_P,) + (_P,)
 
 
+@_build.counted
 def detile(y, grid_shape):
     """(n_tiles, W, F) f32 -> (I, J, K, F), as a copy kernel (K8)."""
     check_grid(grid_shape)
@@ -881,11 +874,8 @@ def detile(y, grid_shape):
         raise ValueError("detile: expected 16-byte aligned tensors")
     _build.launch("flip3d_detile", _DETILE_ARGS, y.data_ptr(), ni, nj, nk, f,
                   out.data_ptr())
-    detile.launches += 1
+    _build.count(detile)
     return out
-
-
-detile.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -909,6 +899,7 @@ def gather_rows_ref(keys, covered, cols_fw, f_logical=None):
 _ROWS_ARGS = (_P,) * 2 + (_I,) + (_P,) + (_I,) * 3 + (_P,) + (_P,)
 
 
+@_build.counted
 def gather_rows(keys, covered, cols_fw, f_logical=None):
     """Per-particle rows of an F-major tile image (K7):
     rows[p, f] = cols_fw[keys[p] // W, f, keys[p] % W] for f < f_logical.
@@ -942,11 +933,8 @@ def gather_rows(keys, covered, cols_fw, f_logical=None):
         None if covered is None else covered.data_ptr(), n,
         cols_fw.data_ptr(), int(cols_fw.dtype == torch.bfloat16),
         cols_fw.shape[1], f, rows.data_ptr())
-    gather_rows.launches += 1
+    _build.count(gather_rows)
     return rows
-
-
-gather_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,7 @@ with the full pressure and viscosity pipeline.
 
 Counterpart of the JAX repo's bench.py (its BENCH_* environment knobs are
 the flags, with the same defaults; a flag left out leaves the config's
-default, as an unset knob does). The scene is smoke.bench_scene: a pool
+default, as an unset knob does). The scene is bench_scene: a pool
 filling the bottom ~27% of the box (~4.1M particles at 128^3, 8 a cell),
 viscosity 5.0, gravity -9.81. One warm frame of dt = 0.01, then `frames`
 timed frames; the clock stops after torch.cuda.synchronize().
@@ -35,10 +35,12 @@ import time
 
 import torch
 
-from .. import smoke
-from . import main, resolve_device
+from ..core.sim import FluidSimulation
+from ..io.trianglemesh import box_mesh
+from . import main, resolve_device, sync
 
 DT = 0.01
+BENCH_PARTICLES = 4_111_806   # the JAX bench scene's pool at 128^3
 ENGINES = ("table", "pallas", "stream")
 BENCH_DEFAULT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
@@ -55,6 +57,28 @@ KNOBS = (
     ("pass_a", "pallas_pass_a"),
     ("resort_every", "pallas_resort_every"),
 )
+
+
+def pool_mesh(res: int, lift: float = 0.0):
+    """The bench scene's pool: a box filling the bottom ~27% of the unit
+    domain, 2.5 cells off the walls, moved up by `lift`."""
+    lo = 2.5 / res
+    return box_mesh((lo, lo + lift, lo), (1.0 - lo, 0.285 + lift, 1.0 - lo))
+
+
+def bench_scene(device, res: int, lift: float = 0.0,
+                particle_engine: str = "pallas", bucket_capacity: int = 16,
+                **overrides) -> FluidSimulation:
+    """bench.py's scene (bench.py:35-100) at res^3, the pool's box moved up
+    by `lift`, on `particle_engine` (bench.py's, "pallas", unless named),
+    with config `overrides`."""
+    sim = FluidSimulation(device)
+    sim.initialize(res, res, res, 1.0 / res, bucket_capacity=bucket_capacity,
+                   particle_engine=particle_engine, **overrides)
+    sim.add_liquid(pool_mesh(res, lift))
+    sim.set_viscosity(5.0)
+    sim.set_gravity(0.0, -9.81, 0.0)
+    return sim
 
 
 def default_engine(path: str = BENCH_DEFAULT) -> str:
@@ -76,23 +100,22 @@ def overrides(**knobs) -> dict:
 def run_engine(dev, engine: str, resolution: int, frames: int,
                bucket_capacity: int, log=print, **knobs) -> dict:
     """One bench run on `engine` -> its line (without the card)."""
-    sim = smoke.bench_scene(dev, resolution, particle_engine=engine,
-                            bucket_capacity=bucket_capacity,
-                            **overrides(**knobs))
+    sim = bench_scene(dev, resolution, particle_engine=engine,
+                      bucket_capacity=bucket_capacity, **overrides(**knobs))
     n = int(sim.state.pos.shape[0])
     log(f"# bench scene: {resolution}^3 grid, {n} particles")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     sim.advance(DT)
     log("# first frame done")
-    smoke._sync(dev)
+    sync(dev)
     substeps = overflow = 0
     t0 = time.perf_counter()
     for _ in range(frames):
         diag = sim.advance(DT)
         substeps += diag.substeps
         overflow += diag.bucket_overflow
-    smoke._sync(dev)
+    sync(dev)
     wall = time.perf_counter() - t0
     log(f"# engine={engine} substeps={substeps} bucket_overflow={overflow} "
         f"last-frame iters: pressure={diag.pressure_iterations} "

@@ -45,6 +45,7 @@ def scatter_revisit_ref(keys, vals, n_tiles):
 _SCATTER_ARGS = (_P, _I, _P, _I, _I, _P, _P)
 
 
+@_build.counted
 def scatter_revisit(keys, vals, n_tiles):
     """out[key // W, key % W, :] += vals[p, :] over keys sorted ascending
     (K9) -> (n_tiles, W, F) f32, zero in cells no particle touches. keys:
@@ -63,11 +64,8 @@ def scatter_revisit(keys, vals, n_tiles):
                       device=keys.device)
     _build.launch("flip3d_scatter_revisit", _SCATTER_ARGS, keys.data_ptr(),
                   n, vals.data_ptr(), n_tiles * W, f, out.data_ptr())
-    scatter_revisit.launches += 1
+    _build.count(scatter_revisit)
     return out
-
-
-scatter_revisit.launches = 0
 
 
 def gather_revisit_ref(keys, cols):
@@ -83,6 +81,7 @@ def gather_revisit_ref(keys, cols):
 _GATHER_ARGS = (_P, _I, _I, _P, _I, _P, _P)
 
 
+@_build.counted
 def gather_revisit(keys, cols):
     """out[p, :] = cols[key // W, key % W, :] (K10) -> (n_chunks * C, F)
     f32, the rows past N zero. keys: (N,) int32, in any order, every key
@@ -101,11 +100,9 @@ def gather_revisit(keys, cols):
         raise ValueError("gather_revisit: expected 16-byte aligned tensors")
     _build.launch("flip3d_gather_revisit", _GATHER_ARGS, keys.data_ptr(), n,
                   n_rows, cols.data_ptr(), f, out.data_ptr())
-    gather_revisit.launches += 1
+    _build.count(gather_revisit)
     return out
 
-
-gather_revisit.launches = 0
 
 # the scatter adds each cell's rows in stream order, index_add_ on the card
 # in the order its atomics land: a few roundings of sums of ~8 values of

@@ -40,9 +40,9 @@ import traceback
 
 import torch
 
-from .. import smoke
+from .. import _build
 from . import bench, card, main, pallas_engine_probe, pallas_hw_check
-from . import resolve_device, solver_microbench
+from . import resolve_device, solver_microbench, sync
 
 K1_K4 = ("scatter_p2g_table", "gather_mac", "mg_down", "mg_up")
 # (step, what it runs, time limit s, the kernels it must launch on the
@@ -127,20 +127,20 @@ class _Limit:
 def run_step(dev, step, what, limit, kernels, fn) -> dict:
     """One step -> its line: the result, wall seconds, the kernels it
     launched (counts set to 0 just before), ok and why not."""
-    smoke.reset_launch_counts()
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     why = []
     try:
         with _Limit(limit):
             result = fn()
-            smoke._sync(dev)
+            sync(dev)
         if not result.get("ok", False):
             why.append("its result is not ok")
     except Exception:   # the blitz goes on; the failure is kept and counted
         result = {"error": traceback.format_exc()}
         why.append("it raised")
     wall = time.perf_counter() - t0
-    counts = {k: v for k, v in smoke.launch_counts().items() if v}
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
     if dev.type == "cuda" and "error" not in result:
         why += [f"kernel {k} was never launched" for k in kernels
                 if not counts.get(k)]

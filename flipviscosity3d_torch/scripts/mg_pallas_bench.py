@@ -9,7 +9,7 @@ one. In the port mg_backend chooses only where the level operators are
 stored (solvers/multigrid.py: f32 under "xla", bf16 under "pallas" on the
 card, f32 on the CPU), and K3 mg_down / K4 mg_up run under every backend.
 So for each backend the cycle multigrid.v_cycle runs (K3 / K4 on the card,
-their plain versions on the CPU) is held against smoke._v_cycle_plain, the
+their plain versions on the CPU) is held against v_cycle_plain, the
 same recursion through mg_down_ref / mg_up_ref on the same hierarchy:
 
 - equality at (16, 16, 16) and (3, 17, 18, 17) on the JAX script's
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
+from ..ops import pallas_mg as pm
 from ..solvers import multigrid as mg
 from . import main, resolve_device, stage
 
@@ -63,11 +64,22 @@ def kernel_cycle(hier, b):
     return mg.v_cycle(hier, b, 1, 1, OMEGA, SCALE)
 
 
-def plain_cycle(hier, b):
-    from ..smoke import _v_cycle_plain
+def v_cycle_plain(hier, b, omega, scale):
+    """The V(1,1) recursion of multigrid.v_cycle through mg_down_ref /
+    mg_up_ref, on the same (bf16-stored) operators as the kernel cycle."""
+    def cycle(lvl, b):
+        if lvl == len(hier.levels) - 1:
+            return mg._coarse_solve(hier, b, 1, 1, omega)
+        diag, links = hier.ops[lvl]
+        x, rc = pm.mg_down_ref(diag, links, b, omega)
+        return pm.mg_up_ref(diag, links, b, x, cycle(lvl + 1, rc), omega,
+                            scale)
+    return cycle(0, b)
 
+
+def plain_cycle(hier, b):
     squeeze = b.ndim == 3
-    out = _v_cycle_plain(hier, b[None] if squeeze else b, OMEGA, SCALE)
+    out = v_cycle_plain(hier, b[None] if squeeze else b, OMEGA, SCALE)
     return out[0] if squeeze else out
 
 

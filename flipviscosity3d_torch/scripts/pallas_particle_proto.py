@@ -183,6 +183,7 @@ def tile_scatter_ref(starts, payload, nt, dx, cap):
 _SCATTER_ARGS = (_P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P)
 
 
+@_build.counted
 def tile_scatter(starts, payload, nt, dx, cap):
     """K11: per cell of every 8x8x8 tile, the Wyvill-weight sums and the
     slot table of the cell's particles -> (n_blocks, 512, 108 + 4 cap) f32
@@ -212,11 +213,8 @@ def tile_scatter(starts, payload, nt, dx, cap):
         float(f32(dx)), float(f32(dx * dx)),
         float(f32((4.0 / 9.0) / dx**6)), float(f32((17.0 / 9.0) / dx**4)),
         float(f32((22.0 / 9.0) / dx**2)), cap, out.data_ptr())
-    tile_scatter.launches += 1
+    _build.count(tile_scatter)
     return out
-
-
-tile_scatter.launches = 0
 
 
 def make_scatter_kernel(n_blocks, nt, dx, cap):
@@ -242,6 +240,7 @@ def tile_gather_ref(spans, payload, cols):
 _GATHER_ARGS = (_P, _I64, _P, _I, _P, _P)
 
 
+@_build.counted
 def tile_gather(spans, payload, cols):
     """K12: out[p, :] = cols[key_p // 512, key_p % 512, :] for the first
     n_chunks * C lanes of the payload, zero where key < 0 -> (n_chunks * C,
@@ -271,11 +270,8 @@ def tile_gather(spans, payload, cols):
         raise ValueError("tile_gather: expected 16-byte aligned tensors")
     _build.launch("flip3d_tile_gather", _GATHER_ARGS, key.data_ptr(), n_rows,
                   cols.data_ptr(), f, out.data_ptr())
-    tile_gather.launches += 1
+    _build.count(tile_gather)
     return out
-
-
-tile_gather.launches = 0
 
 
 def make_gather_kernel(n_blocks, n_chunks, n_cols):

@@ -11,9 +11,9 @@ memory, the kernels' launch counts and the failed checks.
 PyTorch version on the same inputs, times both and the one PyTorch call
 that computes the same function where there is one, and states each
 kernel's bound. chip_smoke.py runs both at 128^3 on the card; the CPU tests
-run the main paths at 16^3. `profile_frames(res, frames)` traces frames of
-the scene on the card with torch.profiler (where the time goes);
-`profile_sim` does so for a simulation that is already set up.
+run the main paths at 16^3. This module is the package's top: nothing in
+the package imports it (the bench scene is scripts/bench.py's, the timers
+and yardsticks scripts/__init__.py's, the launch counts _build.py's).
 
 The tile-major column path (K7 gather_rows, K8 detile, the revisit probes
 K9 and K10) is not on `advance`'s path, which gathers fused. Its entry
@@ -43,16 +43,16 @@ drives the CLI at its default resolution with exports, checkpoints and a
 resumed second run.
 
 `run_stream_repeat` runs the "stream" engine twice from one state (and
-the slab pipeline's "stream" path twice), which must give equal bits, with
-the sums' earlier index_add_ form timed beside it; `run_placed_path` holds
-advance_placed (parallel/sharding.py) against the single-device advance;
-`run_dryrun` runs graft_entry's dry run and entry().
+the slab pipeline's "stream" path twice), which must give equal bits;
+`run_placed_path` holds advance_placed (parallel/sharding.py) against the
+single-device advance; `run_dryrun` runs graft_entry's dry run and
+entry().
 
 `run_sharded_path` drives the slab pipeline (parallel/shard_step.py) on
 the bench scene in slabs, on a LocalGroup of rank-threads, and holds its
 warm frame against the single-device advance from the same state;
 `run_sharded_dist` runs one frame on a DistGroup of world size 1 against a
-LocalGroup of one rank; `profile_sharded` traces sharded frames.
+LocalGroup of one rank.
 """
 
 from __future__ import annotations
@@ -64,7 +64,6 @@ import json
 import math
 import os
 import sys
-import tempfile
 import time
 import traceback
 
@@ -72,16 +71,20 @@ import numpy as np
 import torch
 
 from . import cli
+from ._build import launch_counts, reset_launch_counts
 from .config import SimConfig
-from .core.sim import FluidSimulation
 from .core.step import _clamp_bounds
 from .io import primitives
 from .io import trianglemesh as tm
 from .io.trianglemesh import box_mesh
 from .ops import pallas_mg as pm
 from .ops import pallas_particles as pp
+from .scripts import FLUSH_BYTES, PROBE_RUN, SPLIT_TERMS, STALE_LIFT
+from .scripts import bound, compare, device_ms, equal, max_abs, nbytes
+from .scripts import gather_bound, scatter_bound, stale_scatter_bound
 from .scripts import gather_perf_probe as probe
 from .scripts import gather_smem_check, pallas_hw_check, time_ms
+from .scripts import midpoints, stale_orders, sync, tile_scatter_bound
 from .scripts import mg_pallas_bench, mg_profile, pallas_engine_probe
 from .scripts import pallas_particle_proto as proto
 from .scripts import (
@@ -92,9 +95,10 @@ from .scripts import (
     readiness512,
     solver_microbench,
 )
+from .scripts.bench import BENCH_PARTICLES, DT, bench_scene, pool_mesh
+from .scripts.mg_pallas_bench import v_cycle_plain
 from .solvers import multigrid as mg
 from .solvers import viscosity as vsolver
-from .utils import trace
 
 # (wrapper, source, the TPU kernel it replaces)
 KERNELS = (
@@ -161,9 +165,6 @@ VISCOSITY_KERNELS = ("viscosity_operator", "compute_volume_grids",
 _PARTICLE_KERNELS = tuple(
     fn.__name__ for fn, _, _ in KERNELS
     if fn.__name__ not in ("mg_down", "mg_up", *VISCOSITY_KERNELS))
-BENCH_PARTICLES = 4_111_806   # the JAX bench scene's pool at 128^3
-DT = 0.01
-STALE_LIFT = 0.43
 # The visit-plan variants of the second main path (config.py).
 STALE_PATH = dict(pallas_pass_a="stale", pallas_pass_b="plan",
                   pallas_pushback="kernel")
@@ -192,20 +193,6 @@ SHARDED_SLABS = 4
 SHARDED_KERNELS = ("scatter_p2g_table_stale", "gather_mac",
                    "gather_mac_one_grid")
 SHARDED_ATOL = 5e-4
-
-# One NVIDIA H100 SXM, peak rates from its datasheet: HBM bytes/s and the
-# float32 rate outside the tensor cores, FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-
-
-def reset_launch_counts() -> None:
-    for fn, _, _ in KERNELS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn, _, _ in KERNELS}
 
 
 def _scatter_names(cfg: SimConfig):
@@ -238,33 +225,6 @@ def path_kernels(cfg: SimConfig) -> list:
     return names
 
 
-def pool_mesh(res: int, lift: float = 0.0):
-    """The bench scene's pool: a box filling the bottom ~27% of the unit
-    domain, 2.5 cells off the walls, moved up by `lift`."""
-    lo = 2.5 / res
-    return box_mesh((lo, lo + lift, lo), (1.0 - lo, 0.285 + lift, 1.0 - lo))
-
-
-def bench_scene(device, res: int, lift: float = 0.0,
-                particle_engine: str = "pallas", bucket_capacity: int = 16,
-                **overrides) -> FluidSimulation:
-    """bench.py's scene (bench.py:35-100) at res^3, the pool's box moved up
-    by `lift`, on `particle_engine` (bench.py's, "pallas", unless named),
-    with config `overrides`."""
-    sim = FluidSimulation(device)
-    sim.initialize(res, res, res, 1.0 / res, bucket_capacity=bucket_capacity,
-                   particle_engine=particle_engine, **overrides)
-    sim.add_liquid(pool_mesh(res, lift))
-    sim.set_viscosity(5.0)
-    sim.set_gravity(0.0, -9.81, 0.0)
-    return sim
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def run_main_path(device, res: int, frames: int, dt: float = DT,
                   lift: float = 0.0, log=print, **overrides) -> dict:
     """Drive FluidSimulation on the bench scene (lifted by `lift`, config
@@ -277,7 +237,7 @@ def run_main_path(device, res: int, frames: int, dt: float = DT,
     t_setup = time.perf_counter()
     sim = bench_scene(dev, res, lift, **overrides)
     n = int(sim.state.pos.shape[0])
-    _sync(dev)
+    sync(dev)
     setup_s = time.perf_counter() - t_setup
     log(json.dumps({"scene": f"{res}^3", "lift": lift, "particles": n,
                     "device": str(dev), "dt": dt, **overrides}))
@@ -287,12 +247,12 @@ def run_main_path(device, res: int, frames: int, dt: float = DT,
     diags = []
     for frame in range(frames + 1):
         if frame == 1:
-            _sync(dev)
+            sync(dev)
             t0 = time.perf_counter()
         d = sim.advance(dt)
         diags.append(d)
         log(json.dumps({"frame": frame, "warm": frame == 0, **d.as_dict()}))
-    _sync(dev)
+    sync(dev)
     wall = time.perf_counter() - t0
     result = _path_result(sim, diags, diags[1:], wall, launch_counts(), dev,
                           setup_s)
@@ -391,46 +351,6 @@ def _main_path_failures(sim, diags, result, dev) -> list:
 # kernel vs plain version, on the card
 # ---------------------------------------------------------------------------
 
-def bound(bytes_moved: float, flops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    HBM rate and the float32 operations over the f32 rate."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": bytes_moved, "flops": flops}
-
-
-# float32 operations per (particle, window face) of the Wyvill weight and
-# its two sums (p2g_wyvill.cuh): 15 for the offset, 5 for d2, 9 for the
-# polynomial, 3 to accumulate.
-_P2G_FLOPS_PER_FACE = 32
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def compare(name, got, want, rtol, atol) -> dict:
-    """max abs / rel error of got vs want and whether
-    |got - want| <= atol + rtol * |want| everywhere. Works through pieces of
-    at most 2^27 elements, so that gigabytes of sums need no temporaries of
-    their own size."""
-    max_abs = max_rel = 0.0
-    ok = True
-    pieces = max(1, -(-got.numel() // (1 << 27)))
-    for g, w in zip(got.reshape(-1).chunk(pieces),
-                    want.reshape(-1).chunk(pieces)):
-        g, w = g.float(), w.float()
-        err = (g - w).abs()
-        max_abs = max(max_abs, float(err.max()))
-        max_rel = max(max_rel, float((err / w.abs().clamp(min=1e-30)).max()))
-        ok = ok and bool((err <= atol + rtol * w.abs()).all()) and bool(
-            torch.isfinite(g).all())
-    return {"check": name, "max_abs_err": max_abs, "max_rel_err": max_rel,
-            "rtol": rtol, "atol": atol, "ok": ok}
-
-
 def _random_level(shape, gen, device):
     """A diagonally dominant 7-point operator with zero edge links, like the
     premasked systems, and a right-hand side."""
@@ -460,44 +380,6 @@ def vcycle_level_shapes(shape, cfg: SimConfig) -> dict:
     return out
 
 
-def _v_cycle_plain(hier, b, omega, scale):
-    """The V(1,1) recursion of multigrid.v_cycle through mg_down_ref /
-    mg_up_ref, on the same (bf16-stored) operators as the kernel cycle."""
-    def cycle(lvl, b):
-        if lvl == len(hier.levels) - 1:
-            return mg._coarse_solve(hier, b, 1, 1, omega)
-        diag, links = hier.ops[lvl]
-        x, rc = pm.mg_down_ref(diag, links, b, omega)
-        return pm.mg_up_ref(diag, links, b, x, cycle(lvl + 1, rc), omega,
-                            scale)
-    return cycle(0, b)
-
-
-def stale_orders(pos_s, cfg: SimConfig, gen) -> dict:
-    """Two stale orders of sorted positions `pos_s`, clamped into the
-    domain: "falling" lifts them by the stale path's lift and moves every
-    particle down by 0.8 to 1.0 times one CFL substep (cfl_number cells),
-    smoothly along x, as one substep of that path's falling pool does;
-    "random steps" moves each by uniform steps of up to 1.5 cells per
-    axis."""
-    dx = cfg.dx
-    lo, his = _clamp_bounds(cfg)
-    hi = torch.tensor(his, device=pos_s.device)
-    x = pos_s[:, 0] / (cfg.isize * dx)
-    fall = pos_s.clone()
-    fall[:, 1] += STALE_LIFT - cfg.cfl_number * dx * (
-        0.8 + 0.2 * torch.sin(2.0 * math.pi * x))
-    steps = pos_s + dx * (3.0 * torch.rand(pos_s.shape, generator=gen,
-                                           device=pos_s.device) - 1.5)
-    return {label: torch.minimum(torch.clamp(p, min=lo), hi)
-            for label, p in (("falling", fall), ("random steps", steps))}
-
-
-def _max_abs(t) -> float:
-    lo, hi = t.aminmax()
-    return max(-float(lo), float(hi))
-
-
 def _scatter_checks(label, kernel, plain, cfg: SimConfig, extra) -> tuple:
     """One scatter in both layouts of its sums -> (the unfolded kernel's
     checks, the folded kernel's). `kernel(fold)` and `plain(fold)` give
@@ -514,7 +396,7 @@ def _scatter_checks(label, kernel, plain, cfg: SimConfig, extra) -> tuple:
     got = kernel(False)
     want = plain(False)
     checks = [compare(f"{label}sums", got[0], want[0], 1e-5,
-                      1e-6 * _max_abs(want[0])),
+                      1e-6 * max_abs(want[0])),
               {"check": f"{label}table exact",
                "ok": bool(torch.equal(got[1], want[1]))}]
     checks += extra(got, want)
@@ -540,73 +422,12 @@ def _scatter_checks(label, kernel, plain, cfg: SimConfig, extra) -> tuple:
     want = plain(True)
     fchecks.append(compare(f"{label}sums vs the plain folded version",
                            folded[0], want[0], 1e-5,
-                           1e-6 * _max_abs(want[0])))
+                           1e-6 * max_abs(want[0])))
     return checks, fchecks
-
-
-# the pallas_split_terms settings the particle kernels are held at: the
-# exact products (the default) first, then the JAX package's two splits
-SPLIT_TERMS = (3, 1, 2)
 
 
 def _terms_label(terms: int) -> str:
     return "" if terms == 3 else f"terms {terms}: "
-
-
-def scatter_bound(inputs, n_cells: int, cap: int, stride: int) -> dict:
-    """K1's bound: its inputs (positions, velocities, keys, ranks) read
-    once, a row of `stride` sums and cap slots written per cell, and the
-    Wyvill weights and sums of the 54 window faces of every particle."""
-    n = inputs[0].shape[0]
-    return bound(_nbytes(*inputs) + (4 * stride + 16 * cap) * n_cells,
-                 _P2G_FLOPS_PER_FACE * 54 * n)
-
-
-def stale_scatter_bound(args5, n_cells: int, cap: int, stride: int) -> dict:
-    """K5's bound for scatter_p2g_table_stale's arguments (pos, vel, key,
-    plan, ...): the particles and the plan read once, a row of `stride`
-    sums, cap slots and a count written per cell, and the Wyvill weights and
-    sums of the 54 window faces of every covered particle."""
-    pos, vel, key, plan = args5[:4]
-    return bound(_nbytes(pos, vel, key, plan.covered, plan.tile_ptr,
-                         plan.tile_chunks)
-                 + (4 * stride + 16 * cap + 4) * n_cells,
-                 _P2G_FLOPS_PER_FACE * 54 * int(plan.covered.sum()))
-
-
-def tile_scatter_bound(payload, starts, cap: int, n: int) -> dict:
-    """K11's bound: the payload and the run starts read once, a row of 108 +
-    4 cap floats written per cell, and the Wyvill weights and sums of the 54
-    window faces of each of the n particles."""
-    n_cells = (starts.shape[0] - 1) * proto.W
-    return bound(_nbytes(payload, starts)
-                 + 4 * (proto.N_SUM + 4 * cap) * n_cells,
-                 _P2G_FLOPS_PER_FACE * 54 * n)
-
-
-def gather_bound(args) -> dict:
-    """K2's bound for gather_mac's arguments (px, py, pz, keys, grids_u,
-    grids_v, grids_w, ...): positions, keys and every grid read once, 3
-    samples per grid written per particle; per particle 3 divisions and per
-    component 12 operations for the axes' fractions and weights, 16 for the
-    8 corner weights and 16 per grid to weight and add the corners."""
-    px, py, pz, keys, gu, gv, gw = args[:7]
-    n, n_grids = px.shape[0], len(gu)
-    return bound(_nbytes(px, py, pz, keys, *gu, *gv, *gw) + 12 * n_grids * n,
-                 (3 + 3 * (12 + 16 + 16 * n_grids)) * n)
-
-
-def midpoints(pos, cfg: SimConfig, gen):
-    """Pass B's stand-in midpoints for the kernel checks: the positions
-    moved by normal steps of 3 cells per axis, in their order, so that some
-    leave the domain -> (mx, my, mz, their tile-major keys, how many lie
-    outside)."""
-    dx, shape = cfg.dx, cfg.grid_shape
-    mid = pos + 3.0 * dx * torch.randn(pos.shape, generator=gen,
-                                       device=pos.device)
-    outside = int(((mid < 0) | (mid >= shape[0] * dx)).any(dim=1).sum())
-    return (*(mid[:, a].contiguous() for a in range(3)),
-            pp.key_of_position(mid, dx, shape), outside)
 
 
 def grid_sample_mac(px, py, pz, grids_u, grids_v, grids_w, dx, grid_shape):
@@ -724,10 +545,10 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     checks, checks_b = [], []
     for terms in SPLIT_TERMS:
         label = _terms_label(terms)
-        checks.append(_equal(f"{label}n_grids=2 at particles",
+        checks.append(equal(f"{label}n_grids=2 at particles",
                              pp.gather_mac(*args_a, terms=terms),
                              pp.gather_mac_ref(*args_a, terms=terms)))
-        checks_b.append(_equal(
+        checks_b.append(equal(
             f"{label}n_grids=1 at midpoints ({outside} outside the domain)",
             pp.gather_mac_one_grid(*args_b, terms=terms),
             pp.gather_mac_ref(*plain_b, terms=terms)))
@@ -742,7 +563,7 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
         # arithmetic (coordinates scaled to [-1, 1] and back): its
         # difference is reported, not checked
         {"check": "grid_sample (the library call) vs the kernel",
-         "library_max_abs_err": _max_abs(library() - fused), "ok": True}]
+         "library_max_abs_err": max_abs(library() - fused), "ok": True}]
     del fused
     records["gather_mac"] = (
         checks, _times(lambda: pp.gather_mac(*args_a),
@@ -811,7 +632,7 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
                 tag = f"{label}: {_terms_label(terms)}"
                 checks5 += [
                     compare(f"{tag}sums", got[0], want[0], 1e-5,
-                            1e-6 * _max_abs(want[0])),
+                            1e-6 * max_abs(want[0])),
                     {"check": f"{tag}table and counts exact",
                      "ok": all(bool(torch.equal(a, b))
                                for a, b in zip(got[1:], want[1:]))}]
@@ -840,7 +661,7 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
                 _times(lambda: pp.gather_rows8(*args6),
                        lambda: pp.gather_rows8_ref(*args6),
                        lambda: torch.index_select(corner_table, 0, idx5)),
-                bound(_nbytes(key5, cov6, phi) + 32 * n, 0))
+                bound(nbytes(key5, cov6, phi) + 32 * n, 0))
             del idx5
 
     records.update(_column_records(stream.key, partial, (gu, gv, gw), shape,
@@ -910,7 +731,7 @@ def _slab_checks(state, cfg: SimConfig, gen, ref_slabs: int) -> dict:
                                               slabs=ref_slabs, terms=terms)
         label = tag + _terms_label(terms)
         k5 += [compare(f"{label}sums", got[0], want[0], 1e-5,
-                       1e-6 * _max_abs(want[0])),
+                       1e-6 * max_abs(want[0])),
                {"check": f"{label}table and counts exact",
                 "ok": all(bool(torch.equal(a, b))
                           for a, b in zip(got[1:], want[1:]))}]
@@ -931,13 +752,13 @@ def _slab_checks(state, cfg: SimConfig, gen, ref_slabs: int) -> dict:
     k2, k2b = [], []
     for terms in SPLIT_TERMS:
         label = tag + _terms_label(terms)
-        k2.append(_equal(
+        k2.append(equal(
             f"{label}n_grids=2 at particles",
             pp.gather_mac(spx, spy, spz, key, gu2, gv2, gw2, dx, local,
                           terms),
             pp.gather_mac_ref(spx, spy, spz, key, gu2, gv2, gw2, dx, local,
                               terms)))
-        k2b.append(_equal(
+        k2b.append(equal(
             f"{label}n_grids=1 at midpoints",
             pp.gather_mac_one_grid(mx, my, mz, key_m, *grids[0], dx, local,
                                    terms),
@@ -948,48 +769,6 @@ def _slab_checks(state, cfg: SimConfig, gen, ref_slabs: int) -> dict:
     return {k5_name: k5, "gather_mac": k2, "gather_mac_one_grid": k2b}
 
 
-# bytes written between two cold launches: more than the 50 MB L2 holds
-_FLUSH_BYTES = 256 << 20
-# the head start, in device clock cycles, a timed batch is queued behind,
-# so that the host's launch cost stays out of the device's time
-_HEAD_START_CYCLES = 2_000_000
-
-
-def device_ms(fn, flush=None, count: int = 10, repeats: int = 5) -> float:
-    """Device milliseconds of one fn() call, the median of `repeats`
-    batches. Each batch is queued behind torch.cuda._sleep, so the host has
-    enqueued it before the device reaches its first CUDA event, and is
-    timed by a pair of events: without `flush`, `count` back-to-back calls
-    (inputs warm in L2 where they fit); with `flush`, one call after
-    flush() has written past L2 (cold inputs), the flush outside the
-    events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        if flush is not None:
-            flush()
-        torch.cuda._sleep(_HEAD_START_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        calls = 1 if flush is not None else count
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    times.sort()
-    return times[len(times) // 2]
-
-
-def _equal(name, got, want) -> dict:
-    """torch.equal of two outputs, with their largest difference."""
-    rec = compare(name, got, want, 0.0, 0.0)
-    rec["ok"] = bool(torch.equal(got, want))
-    return rec
-
-
 def _vcycle_records(cfg: SimConfig, dev, gen) -> dict:
     """The records of K3 mg_down and K4 mg_up for check_kernels. For each
     solve (vcycle_level_shapes of cfg's grid) a random diagonally dominant
@@ -997,7 +776,7 @@ def _vcycle_records(cfg: SimConfig, dev, gen) -> dict:
     above the coarsest, with the operator stored in bf16 (the hierarchy's
     own, cfg.mg_operator_dtype) and in f32 and a random b and xc, each
     kernel is held torch.equal to its plain version; a whole V-cycle is
-    held torch.equal to _v_cycle_plain. Each bf16 level is timed: the
+    held torch.equal to v_cycle_plain. Each bf16 level is timed: the
     kernel back to back (`ms`) and cold (`ms_cold`, L2 flushed before each
     launch; the inputs of the levels under ~50 MB otherwise stay in L2 and
     read faster than the bound allows), the plain version, and the bound
@@ -1005,7 +784,7 @@ def _vcycle_records(cfg: SimConfig, dev, gen) -> dict:
     level's (the series of the earlier records); `levels` holds one line
     per level."""
     on_card = torch.device(dev).type == "cuda"
-    flush_buf = torch.empty(_FLUSH_BYTES // 4 if on_card else 1, device=dev)
+    flush_buf = torch.empty(FLUSH_BYTES // 4 if on_card else 1, device=dev)
     flush = flush_buf.zero_
     omega, scale = cfg.mg_omega, cfg.mg_coarse_scale
     checks = {"mg_down": [], "mg_up": []}
@@ -1016,9 +795,9 @@ def _vcycle_records(cfg: SimConfig, dev, gen) -> dict:
         hier = mg.build_hierarchy(diag, links, cfg)
         del diag, links
         assert [tuple(op[0].shape) for op in hier.ops] == shapes
-        cyc = _equal(f"{label} whole V-cycle ({len(hier.levels)} levels)",
+        cyc = equal(f"{label} whole V-cycle ({len(hier.levels)} levels)",
                      mg.v_cycle(hier, b, 1, 1, omega, scale),
-                     _v_cycle_plain(hier, b, omega, scale))
+                     v_cycle_plain(hier, b, omega, scale))
         del b
         checks["mg_down"].append(cyc)
         checks["mg_up"].append(cyc)
@@ -1036,11 +815,11 @@ def _vcycle_records(cfg: SimConfig, dev, gen) -> dict:
                 xk, rck = pm.mg_down(d, lk, bl, omega)
                 xr, rcr = pm.mg_down_ref(d, lk, bl, omega)
                 checks["mg_down"] += [
-                    _equal(f"{label} {shape} {tag} x", xk, xr),
-                    _equal(f"{label} {shape} {tag} rc", rck, rcr)]
+                    equal(f"{label} {shape} {tag} x", xk, xr),
+                    equal(f"{label} {shape} {tag} rc", rck, rcr)]
                 up = (d, lk, bl, xr, xc, omega, scale)
                 outk = pm.mg_up(*up)
-                checks["mg_up"].append(_equal(f"{label} {shape} {tag} out",
+                checks["mg_up"].append(equal(f"{label} {shape} {tag} out",
                                               outk, pm.mg_up_ref(*up)))
                 line[f"equal_{tag}"] = all(
                     c["ok"] for c in (checks["mg_down"][-2:]
@@ -1050,12 +829,12 @@ def _vcycle_records(cfg: SimConfig, dev, gen) -> dict:
                     line["mg_down"] = _level_times(
                         lambda: pm.mg_down(*down),
                         lambda: pm.mg_down_ref(*down), flush, on_card,
-                        bound(_nbytes(d, *lk, bl, xk, rck),
+                        bound(nbytes(d, *lk, bl, xk, rck),
                               18 * bl.numel()))
                     line["mg_up"] = _level_times(
                         lambda: pm.mg_up(*up), lambda: pm.mg_up_ref(*up),
                         flush, on_card,
-                        bound(_nbytes(d, *lk, bl, xr, xc, outk),
+                        bound(nbytes(d, *lk, bl, xr, xc, outk),
                               20 * bl.numel()))
                 del xk, rck, xr, rcr, outk
             levels.append(line)
@@ -1107,14 +886,14 @@ def _viscosity_operator_record(cfg: SimConfig, dev, gen) -> tuple:
     checks, y = [], None
     for label, d in (("diag * x + C(x)", diag), ("C(x)", None)):
         y = vsolver.viscosity_operator(factors, x, d)
-        checks.append(_equal(label, torch.cat([t.reshape(-1) for t in y]),
+        checks.append(equal(label, torch.cat([t.reshape(-1) for t in y]),
                              torch.cat([t.reshape(-1) for t in
                                         vsolver.viscosity_operator_ref(
                                             factors, x, d)])))
     grids = [g for fac in factors for g in fac.values()]
-    bnd = bound(_nbytes(*grids, *diag, *x, *y),
+    bnd = bound(nbytes(*grids, *diag, *x, *y),
                 30 * sum(t.numel() for t in x))
-    flush_buf = torch.empty(_FLUSH_BYTES // 4 if on_card else 1, device=dev)
+    flush_buf = torch.empty(FLUSH_BYTES // 4 if on_card else 1, device=dev)
     times = _level_times(
         lambda: vsolver.viscosity_operator(factors, x, diag),
         lambda: vsolver.viscosity_operator_ref(factors, x, diag),
@@ -1217,7 +996,7 @@ def _visc_build_records(cfg: SimConfig, dev, gen) -> dict:
 
     got, want = volumes(), volumes_ref()
     grids = [getattr(got, f.name) for f in dataclasses.fields(got)]
-    checks_v = [_equal(f"{f.name} ({'x'.join(map(str, g.shape))})", g,
+    checks_v = [equal(f"{f.name} ({'x'.join(map(str, g.shape))})", g,
                        getattr(want, f.name))
                 for f, g in zip(dataclasses.fields(got), grids)]
     del want
@@ -1231,12 +1010,12 @@ def _visc_build_records(cfg: SimConfig, dev, gen) -> dict:
                                                   dt, cfg)
 
     out, ref = visc_system_grids(system()), visc_system_grids(system_ref())
-    checks_s = [_equal(name, out[name], ref[name]) for name in out]
+    checks_s = [equal(name, out[name], ref[name]) for name in out]
     solids = (states.solid_u, states.solid_v, states.solid_w)
-    bnd_v = bound(_nbytes(phi, *grids), 0)
-    bnd_s = bound(_nbytes(u, v, w, *solids, *grids, visc, *out.values()), 0)
+    bnd_v = bound(nbytes(phi, *grids), 0)
+    bnd_s = bound(nbytes(u, v, w, *solids, *grids, visc, *out.values()), 0)
     del out, ref
-    flush_buf = torch.empty(_FLUSH_BYTES // 4 if on_card else 1, device=dev)
+    flush_buf = torch.empty(FLUSH_BYTES // 4 if on_card else 1, device=dev)
     keys = ("ms", "ms_cold", "plain_ms", "cold_over_bound")
     records = {}
     for name, checks, kern, plain, bnd in (
@@ -1278,9 +1057,6 @@ def _exact(name, got, want) -> dict:
     return {"check": name, "ok": bool(torch.equal(got, want))}
 
 
-# particles the revisit probes run over where the whole stream's (N, 128)
-# values would not fit the card beside the images (256^3: 18 GB each)
-PROBE_RUN = 1 << 23
 # bytes the card must have free before the 108-lane image is checked too on
 # a grid whose gather the JAX step splits (at 256^3: the columns 7.2 GB, the
 # image 7.5, the rows twice 15.3, the plain version's W-major copy 7.2)
@@ -1372,7 +1148,7 @@ def _column_records(key_s, partial, grids, shape, gen) -> dict:
             lambda: pp.from_tile_major(y, shape),
             lambda: tiles.permute(0, 3, 1, 4, 2, 5, 6).contiguous())
         checks[-1][f"ms_F{f}"] = times["ms"]
-        bnd = bound(2 * _nbytes(y), 0)
+        bnd = bound(2 * nbytes(y), 0)
         del y, tiles
     records["detile"] = (checks, times, bnd)
 
@@ -1456,7 +1232,7 @@ def _proto_records(cfg: SimConfig, dev, gen) -> dict:
         _exact("slot table exact", got[..., proto.N_SUM:],
                want[..., proto.N_SUM:]),
         compare("sums", got[..., :proto.N_SUM], want[..., :proto.N_SUM],
-                1e-5, 1e-6 * _max_abs(want[..., :proto.N_SUM]))]
+                1e-5, 1e-6 * max_abs(want[..., :proto.N_SUM]))]
     del got, want
     records["tile_scatter"] = (
         checks, _times(k11, k11_plain),
@@ -1473,7 +1249,7 @@ def _proto_records(cfg: SimConfig, dev, gen) -> dict:
               {"check": "pad rows zero", "ok": not bool(got[n:].any())},
               _exact("the library call on the particles' rows", got[:n],
                      torch.index_select(flat, 0, idx))]
-    out_bytes = _nbytes(got)
+    out_bytes = nbytes(got)
     del got
     distinct = int(torch.unique(idx).numel())
     records["tile_gather"] = (
@@ -1495,7 +1271,7 @@ def run_proto(device, res: int = 128, log=print) -> dict:
     reset_launch_counts()
     t0 = time.perf_counter()
     result = proto.run(dev, res, log=lambda line: None)
-    _sync(dev)
+    sync(dev)
     wall = time.perf_counter() - t0
     launches = launch_counts()
     log(json.dumps(result))
@@ -1554,7 +1330,7 @@ def check_unfused_route(state, prev, cfg: SimConfig, log=print) -> dict:
         route = unfused_gather_mac(px, py, pz, key, *grids, dx, shape,
                                    dtype=dtype, split=split)
         checks.append(compare(f"K7 + combine vs K2, {tag} image, max|sample| "
-                              f"{_max_abs(fused):.4g}", route, fused, 1e-5,
+                              f"{max_abs(fused):.4g}", route, fused, 1e-5,
                               1e-6))
         del seen, fused, route
     # one image as the route builds it: both grids, or one where it splits
@@ -1602,7 +1378,7 @@ def run_hw_check(device, res: int = 128, particles: int = BENCH_PARTICLES,
         gather_smem_check.run(dev, large_res, 8 * particles, log=quiet),
         probe.run(dev, res, probe_n, particles, log=quiet),
     ]
-    _sync(dev)
+    sync(dev)
     wall = time.perf_counter() - t0
     launches = launch_counts()
     for m in modules:
@@ -1663,7 +1439,7 @@ def run_scripts(device, runs=SCRIPT_RUNS, log=print) -> dict:
             result = module.run(dev, **args, log=quiet)
         except Exception:   # one module's fault must not hide the others'
             result = {"ok": False, "error": traceback.format_exc()}
-        _sync(dev)
+        sync(dev)
         wall = time.perf_counter() - t0
         counts = launch_counts()
         for k, v in counts.items():
@@ -1844,83 +1620,6 @@ def run_cli64(device, workdir, resolution=None) -> dict:
     return result
 
 
-def profile_frames(res: int, frames: int, top: int = 25, dt: float = DT,
-                   lift: float = 0.0, **overrides) -> dict:
-    """Trace `frames` frames of `dt` of the bench scene (lifted by `lift`,
-    config `overrides`) on the card after one warm frame (profile_sim)."""
-    sim = bench_scene("cuda", res, lift, **overrides)
-    sim.advance(dt)
-    return profile_sim(sim, frames, top, dt)
-
-
-def profile_sim(sim, frames: int, top: int = 25, dt: float = DT) -> dict:
-    """Trace the next `frames` frames of `dt` of a simulation on the card
-    with torch.profiler: wall time, device busy time, the `top` operators
-    by device self time, and the frames' stages (_trace)."""
-    return _trace(lambda: [sim.advance(dt) for _ in range(frames)], frames,
-                  top)
-
-
-def profile_sharded(res: int, frames: int = 1, n_slabs: int = SHARDED_SLABS,
-                    engine: str = "pallas", top: int = 25,
-                    dt: float = DT) -> dict:
-    """profile_sim for the slab pipeline: the bench scene at res^3 in
-    n_slabs slabs on a LocalGroup on the card, one warm frame, then
-    `frames` frames traced."""
-    from .parallel import shard_step as sh
-    from .parallel.collectives import LocalGroup
-
-    sim = bench_scene("cuda", res, particle_engine=engine)
-    cfg, state = sim.cfg, sim.state
-    spec = sh.make_spec(cfg, n_slabs, n_particles=int(state.pos.shape[0]))
-    group = LocalGroup(n_slabs, "cuda")
-    box = [sh.shard_simstate(state, cfg, spec, group)]
-    del sim, state
-
-    def advance():
-        box[0], d = sh.advance_sharded(box[0], dt, cfg, spec, group)
-        return d
-
-    advance()
-    return _trace(lambda: [advance() for _ in range(frames)], frames, top)
-
-
-def _trace(run, frames: int, top: int) -> dict:
-    """run() (-> the frames' StepDiagnostics) under torch.profiler on the
-    card: wall time; device busy time, the union of the device operations'
-    intervals in the Chrome trace (overlapping streams count once); the
-    `top` operators by device self time; and the frames' stages summed by
-    name (utils/trace.py; empty for the slab pipeline, which has none)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        diags = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            data = json.load(f)
-    chrome = data["traceEvents"] if isinstance(data, dict) else data
-    busy_us = trace.device_busy_us(e for e in chrome if e.get("ph") == "X")
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    return {
-        "frames": frames, "substeps": sum(d.substeps for d in diags),
-        "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
-        "top": [{"name": e.key[:90], "calls": e.count,
-                 "device_ms": e.self_device_time_total / 1e3}
-                for e in events[:top]],
-        "stages": trace.sum_stages(diags),
-    }
-
-
 # ---------------------------------------------------------------------------
 # the slab pipeline (parallel/): the bench scene in slabs
 # ---------------------------------------------------------------------------
@@ -2042,7 +1741,7 @@ def run_sharded_path(device, res: int, frames: int,
     group = LocalGroup(n_slabs, dev)
     ss = sh.shard_simstate(state, cfg, spec, group)
     del state
-    _sync(dev)
+    sync(dev)
     setup_s = time.perf_counter() - t0
     log(json.dumps({"scene": f"{res}^3", "particles": n, "slabs": n_slabs,
                     "spec": spec._asdict(), "engine": engine,
@@ -2055,10 +1754,10 @@ def run_sharded_path(device, res: int, frames: int,
     for frame in range(frames + 1):
         reset_launch_counts()
         group.reset_counts()
-        _sync(dev)
+        sync(dev)
         t1 = time.perf_counter()
         ss, d = sh.advance_sharded(ss, dt, cfg, spec, group)
-        _sync(dev)
+        sync(dev)
         secs = time.perf_counter() - t1
         if frame:
             wall += secs
@@ -2195,32 +1894,6 @@ def _int_diag_diffs(a, b, names=_INT_DIAGS) -> list:
             if getattr(a, k) != getattr(b, k)]
 
 
-def segment_reduce_index_add(stream, sums, mins, min_default):
-    """The stream engine's segment_reduce as it was before its sums were
-    made repeatable: one (N, S) index_add_ into a table with a guard row
-    (atomics on the card, so each cell's order of addition changes from
-    run to run). Kept to time the repair against, never on a path."""
-    from .ops.stream import segment_reduce
-
-    n_cells = stream.counts.shape[0]
-    out = torch.zeros((n_cells + 1, len(sums)), device=stream.key.device)
-    out.index_add_(0, stream.key, torch.stack(list(sums), dim=-1))
-    _, min_cells = segment_reduce(stream, [], mins, min_default)
-    return list(out[:n_cells].unbind(dim=1)), min_cells
-
-
-@contextlib.contextmanager
-def _index_add_sums():
-    from .ops import stream_transfers
-
-    kept = stream_transfers.segment_reduce
-    stream_transfers.segment_reduce = segment_reduce_index_add
-    try:
-        yield
-    finally:
-        stream_transfers.segment_reduce = kept
-
-
 def _frames_from(state, cfg, frames: int, dev, dt: float = DT):
     """One warm frame, then `frames` timed frames of core.step.advance from
     `state` -> (final state, every frame's diagnostics, timed substeps/s)."""
@@ -2229,10 +1902,10 @@ def _frames_from(state, cfg, frames: int, dev, dt: float = DT):
     diags = []
     wall = 0.0
     for frame in range(frames + 1):
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         state, d = tstep.advance(state, dt, cfg)
-        _sync(dev)
+        sync(dev)
         if frame:
             wall += time.perf_counter() - t0
         diags.append(d)
@@ -2240,36 +1913,14 @@ def _frames_from(state, cfg, frames: int, dev, dt: float = DT):
     return state, diags, timed / wall if wall else None
 
 
-def _sums_times(state, cfg, dev, columns: int = 108) -> dict:
-    """CUDA-event ms of segment_reduce's sums and of the index_add_ form on
-    the stream of `state`'s particles with `columns` random sums a
-    particle (p2g_sdf_stream's 3 x 18 x 2)."""
-    from .ops.stream import segment_reduce, stream_sort
-
-    stream = stream_sort(state.pos, [], cfg.dx, cfg.grid_shape)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    sums = list(torch.randn((columns, state.pos.shape[0]), generator=gen,
-                            device=dev).unbind(0))
-    return {"rows": int(state.pos.shape[0]), "columns": columns,
-            "segment_ms": time_ms(lambda: segment_reduce(stream, sums, [],
-                                                         0.0), dev),
-            "index_add_ms": time_ms(lambda: segment_reduce_index_add(
-                stream, sums, [], 0.0), dev)}
-
-
 def run_stream_repeat(device, res: int, frames: int = 2,
                       sharded_frames: int = 1,
                       n_slabs: int = SHARDED_SLABS, log=print) -> dict:
-    """The "stream" engine's bench scene run four times from one state, one
-    warm frame and `frames` timed ones each, in turns: with the sums of
-    segment_reduce_index_add (the form before the repair), twice with
-    segment_reduce's, once more with index_add_; then the slab pipeline on
-    "stream" (n_slabs rank-threads) twice from one state for
-    `sharded_frames` frames. Fails unless the two runs of each with
-    segment_reduce give torch.equal states and equal integer diagnostics,
-    frame by frame. On the card it also times the two forms of the sums
-    alone (_sums_times)."""
+    """The "stream" engine's bench scene run twice from one state, one warm
+    frame and `frames` timed ones each; then the slab pipeline on "stream"
+    (n_slabs rank-threads) twice from one state for `sharded_frames`
+    frames. Fails unless the two runs of each give torch.equal states and
+    equal integer diagnostics, frame by frame."""
     from .parallel import shard_step as sh
     from .parallel.collectives import LocalGroup
 
@@ -2278,17 +1929,11 @@ def run_stream_repeat(device, res: int, frames: int = 2,
     cfg, state0 = sim.cfg, sim.state
     del sim
     failures = []
-    runs, before = [], []
-    for label in ("index_add", "first", "second", "index_add"):
-        if label == "index_add":
-            with _index_add_sums():
-                before.append(_frames_from(state0, cfg, frames, dev))
-            out = before[-1]
-        else:
-            runs.append(_frames_from(state0, cfg, frames, dev))
-            out = runs[-1]
-        log(json.dumps({"stream_run": label, "substeps_per_s": out[2],
-                        "frames": [d.as_dict() for d in out[1]]}))
+    runs = []
+    for label in ("first", "second"):
+        runs.append(_frames_from(state0, cfg, frames, dev))
+        log(json.dumps({"stream_run": label, "substeps_per_s": runs[-1][2],
+                        "frames": [d.as_dict() for d in runs[-1][1]]}))
     diffs = state_diffs(runs[0][0], runs[1][0])
     if diffs:
         failures.append(f"stream: the two runs differ in {diffs}")
@@ -2298,15 +1943,10 @@ def run_stream_repeat(device, res: int, frames: int = 2,
         "particles": int(state0.pos.shape[0]),
         "timed_frames": frames,
         "substeps_per_s": [r[2] for r in runs],
-        "substeps_per_s_index_add": [r[2] for r in before],
-        "index_add_runs_differ_in": [state_diffs(runs[0][0], r[0])
-                                     for r in before],
-        "liquid_cells": [[d.liquid_cells for d in r[1]]
-                         for r in (*runs, *before)],
+        "liquid_cells": [[d.liquid_cells for d in r[1]] for r in runs],
     }
-    del runs, before
+    del runs
     if dev.type == "cuda":
-        result["sums"] = _sums_times(state0, cfg, dev)
         torch.cuda.empty_cache()
 
     spec = sh.make_spec(cfg, n_slabs, n_particles=result["particles"])
@@ -2377,10 +2017,10 @@ def run_placed_path(device, res: int, frames: int = 1, n_ranks: int = 4,
         single, d1 = tstep.advance(single, DT, cfg)
         reset_launch_counts()
         group.reset_counts()
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         placed, d2 = advance_placed(placed, placements, DT, cfg, group)
-        _sync(dev)
+        sync(dev)
         secs = time.perf_counter() - t0
         counts = launch_counts()
         for k, v in counts.items():

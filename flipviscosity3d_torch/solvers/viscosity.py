@@ -324,6 +324,7 @@ _ARGS = (ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
          _build.I, _build.P)
 
 
+@_build.counted
 def viscosity_operator(factors, x, diag=None):
     """K13, the coupled operator: (yu, yv, yw) = diag * x + C(x) on x = (xu,
     xv, xw), C the 14 couplings a row of _apply_coupling; C(x) alone where
@@ -336,11 +337,7 @@ def viscosity_operator(factors, x, diag=None):
         return viscosity_operator_ref(factors, x, diag)
     ptrs, dims, y = [], [], []
     for c, (xc, fc) in enumerate(zip(x, factors)):
-        if xc.ndim != 3 or xc.numel() >= 1 << 31:
-            raise ValueError(
-                f"x[{c}]: expected a 3-D grid of fewer than 2^31 cells (the "
-                f"kernel's 32-bit offsets), got shape {tuple(xc.shape)}")
-        _build.require(xc, f"x[{c}]", torch.float32)
+        _build.require(xc, f"x[{c}]", torch.float32, ndim=3)
         grids = {f"factors[{c}][{key!r}]": fc[key] for key in _KEYS}
         if diag is not None:
             grids[f"diag[{c}]"] = diag[c]
@@ -360,30 +357,6 @@ def viscosity_operator(factors, x, diag=None):
     return tuple(y)
 
 
-viscosity_operator.launches = 0
-
-
-def _require_grid(t, name, dtype, device, shape=None) -> None:
-    """Raise ValueError unless `t` is a contiguous 3-D tensor of `dtype` on
-    `device` with fewer than 2^31 cells (K14's 32-bit offsets) and, if
-    given, of `shape`."""
-    if not isinstance(t, torch.Tensor):
-        raise ValueError(f"{name}: expected a tensor, got {type(t)}")
-    if t.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, got "
-                         f"{t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected dtype {dtype}, got {t.dtype}")
-    if t.ndim != 3 or t.numel() >= 1 << 31:
-        raise ValueError(f"{name}: expected a 3-D grid of fewer than 2^31 "
-                         f"cells, got shape {tuple(t.shape)}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
 # VolumeGrids' fields, each with the axes on which its corner phi is the
 # 2-point average (one cell longer than liquid_phi there), as
 # compute_volume_grids_ref's half-cell axes leave them
@@ -398,12 +371,14 @@ _VOLUME_ARGS = (_build.P, ctypes.POINTER(ctypes.c_void_p),
                 _build.I, _build.F, _build.P)
 
 
+@_build.counted
 def compute_volume_grids(liquid_phi, cfg: SimConfig) -> VolumeGrids:
     """The 7 control-volume fraction grids of compute_volume_grids_ref.
     Takes that plain version for CPU tensors and launches K14's volume
     kernel (csrc/visc_build.cu, bit-equal to it) for CUDA tensors, one
     launch for all 7; there is no fallback between the two."""
-    _require_grid(liquid_phi, "liquid_phi", torch.float32, liquid_phi.device)
+    _build.require(liquid_phi, "liquid_phi", torch.float32,
+                   device=liquid_phi.device, ndim=3)
     if _build.on_cpu(liquid_phi, "compute_volume_grids"):
         return compute_volume_grids_ref(liquid_phi, cfg)
     shape = tuple(liquid_phi.shape)
@@ -425,14 +400,13 @@ def compute_volume_grids(liquid_phi, cfg: SimConfig) -> VolumeGrids:
     return VolumeGrids(**grids)
 
 
-compute_volume_grids.launches = 0
-
 _ASSEMBLE_ARGS = (ctypes.POINTER(ctypes.c_void_p),
                   ctypes.POINTER(ctypes.c_int), _build.F, _build.F, _build.P)
 _RHS_ARGS = (ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
              _build.P)
 
 
+@_build.counted
 def build_viscosity_system(u, v, w, volumes: VolumeGrids, states: FaceStates,
                            viscosity_node, dt, cfg: SimConfig, row_masks=None
                            ) -> ViscositySystem:
@@ -449,16 +423,17 @@ def build_viscosity_system(u, v, w, volumes: VolumeGrids, states: FaceStates,
     solids = (states.solid_u, states.solid_v, states.solid_w)
     for c, vel in enumerate(vels):
         name = "uvw"[c]
-        _require_grid(vel, name, torch.float32, dev)
-        _require_grid(solids[c], f"states.solid_{name}", torch.bool, dev,
-                      vel.shape)
+        _build.require(vel, name, torch.float32, device=dev, ndim=3)
+        _build.require(solids[c], f"states.solid_{name}", torch.bool,
+                       vel.shape, dev)
         if row_masks is not None:
-            _require_grid(row_masks[c], f"row_masks[{c}]", torch.bool, dev,
-                          vel.shape)
+            _build.require(row_masks[c], f"row_masks[{c}]", torch.bool,
+                           vel.shape, dev)
     for field in dataclasses.fields(volumes):
-        _require_grid(getattr(volumes, field.name), f"volumes.{field.name}",
-                      torch.float32, dev)
-    _require_grid(viscosity_node, "viscosity_node", torch.float32, dev)
+        _build.require(getattr(volumes, field.name), f"volumes.{field.name}",
+                       torch.float32, device=dev, ndim=3)
+    _build.require(viscosity_node, "viscosity_node", torch.float32,
+                   device=dev, ndim=3)
     if _build.on_cpu(u, "build_viscosity_system"):
         return build_viscosity_system_ref(u, v, w, volumes, states,
                                           viscosity_node, dt, cfg, row_masks)
@@ -508,9 +483,6 @@ def build_viscosity_system(u, v, w, volumes: VolumeGrids, states: FaceStates,
     _build.count(build_viscosity_system)
     return ViscositySystem(tuple(in_mat), tuple(diags), tuple(vols),
                            tuple(factors), tuple(rhs))
-
-
-build_viscosity_system.launches = 0
 
 
 def apply_viscosity_matrix(sys: ViscositySystem, x):

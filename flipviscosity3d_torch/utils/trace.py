@@ -25,9 +25,6 @@ It counts the read under `site` (always on, per thread: the slab pipeline
 runs its solves in rank threads), spans it under the same name, and returns
 the host value. A Frame's `host_reads` are the counts of its thread within
 the frame.
-
-`device_busy_us` and `sum_stages` reduce a profiler's Chrome trace and a
-run's frames for the port's own exporter (smoke.py).
 """
 
 from __future__ import annotations
@@ -38,9 +35,6 @@ import threading
 import time
 
 import torch
-
-# the Chrome trace's categories of device operations
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 _OFF = contextlib.nullcontext()
 
@@ -173,31 +167,3 @@ class Frame:
                                else (t1 - t0) * 1e3)
         return out
 
-
-def sum_stages(frames) -> dict:
-    """The `stages` of several frames (StepDiagnostics) summed by name."""
-    out = {}
-    for d in frames:
-        for name, s in d.stages.items():
-            t = out.setdefault(name, dict.fromkeys(s, 0))
-            for k in t:
-                t[k] += s[k]
-    return out
-
-
-def device_busy_us(events) -> float:
-    """The union of the device operations' intervals (kernels, copies,
-    sets) among a Chrome trace's complete events, in microseconds: time
-    the device was busy, counting overlapping streams once."""
-    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                if str(e.get("cat", "")).lower() in DEVICE_CATS
-                and "ts" in e and "dur" in e)
-    busy, end = 0.0, None
-    for s, e in iv:
-        if end is None or s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
-    return busy

@@ -11,13 +11,15 @@ import dataclasses
 import pytest
 import torch
 
-from flipviscosity3d_torch import smoke
+from flipviscosity3d_torch import _build, smoke
 from flipviscosity3d_torch.config import SimConfig
 from flipviscosity3d_torch.ops import pallas_mg as pm
 from flipviscosity3d_torch.ops import pallas_particles as pp
 from flipviscosity3d_torch.scripts import gather_perf_probe as probe
-from flipviscosity3d_torch.scripts import pallas_hw_check
+from flipviscosity3d_torch.scripts import midpoints, pallas_hw_check
 from flipviscosity3d_torch.scripts import pallas_particle_proto as proto
+from flipviscosity3d_torch.scripts.bench import BENCH_PARTICLES, DT, bench_scene
+from flipviscosity3d_torch.scripts.mg_pallas_bench import v_cycle_plain
 from flipviscosity3d_torch.solvers import multigrid as mg
 from flipviscosity3d_torch.solvers import viscosity as vs
 
@@ -46,7 +48,7 @@ def cuda():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_versions(cuda):
-    sim = smoke.bench_scene(cuda, 32)
+    sim = bench_scene(cuda, 32)
     records = smoke.check_kernels(sim.state, sim.cfg)
     assert [r["name"] for r in records] == [
         "scatter_p2g_table", "gather_mac", "mg_down", "mg_up",
@@ -161,7 +163,7 @@ def test_gather_mac_orders_match_plain_version(cuda):
     key = pp.key_of_position(pos, dx, shape)
     key_s, (pos_s,) = pp.sort_by_key(key, (pos,))
     shuffle = torch.randperm(pos.shape[0], generator=gen, device=cuda)
-    mx, my, mz, key_m, outside = smoke.midpoints(pos_s, cfg, gen)
+    mx, my, mz, key_m, outside = midpoints(pos_s, cfg, gen)
     assert outside > 0
     orders = {"sorted": (*pos_s.unbind(1), key_s),
               "shuffled": (*pos_s[shuffle].unbind(1), key_s[shuffle]),
@@ -329,10 +331,10 @@ def test_unfused_route_matches_gather_mac_on_the_card(cuda):
     """build_mac_columns -> K7 -> combine_mac_samples against K2 on a 32^3
     state after two frames, f32 and bf16 images; and the hardware gate
     bites on the card: a tampered image fails it."""
-    sim = smoke.bench_scene(cuda, 32)
-    sim.advance(smoke.DT)
+    sim = bench_scene(cuda, 32)
+    sim.advance(DT)
     prev = (sim.state.u, sim.state.v, sim.state.w)
-    sim.advance(smoke.DT)
+    sim.advance(DT)
     rec = smoke.check_unfused_route(sim.state, prev, sim.cfg,
                                     log=lambda line: None)
     assert rec["ok"], rec
@@ -356,7 +358,7 @@ def test_folded_kernels_match_unfolded_where_they_fold_by_themselves(
     """check_kernels as the smoke run calls it at 256^3: on a grid that
     folds by itself, the plain scatters in runs of particles."""
     monkeypatch.setattr(pp, "FOLD_CELLS", 32 ** 3)
-    sim = smoke.bench_scene(cuda, 32)
+    sim = bench_scene(cuda, 32)
     assert pp.large_grid(sim.cfg.grid_shape)
     for r in smoke.check_kernels(sim.state, sim.cfg, ref_slabs=16):
         assert r["ok"], r
@@ -366,16 +368,6 @@ def test_folded_kernels_match_unfolded_where_they_fold_by_themselves(
 def test_fluid_simulation_defaults_to_the_card(cuda):
     from flipviscosity3d_torch import FluidSimulation
     assert FluidSimulation().device.type == "cuda"
-
-
-@pytest.mark.gpu
-def test_profile_frames_sees_device_time(cuda):
-    prof = smoke.profile_frames(32, 1, top=1000)
-    assert prof["substeps"] >= 1
-    assert 0 < prof["device_busy_ms"] <= prof["wall_ms"]
-    assert any("mg_down_kernel" in e["name"] for e in prof["top"])
-    sim = smoke.bench_scene(cuda, 32)
-    assert smoke.profile_sim(sim, 1)["device_busy_ms"] > 0
 
 
 # runtime calls in which the host waits for the device
@@ -399,12 +391,12 @@ def test_traced_frame_times_its_stages_on_the_stream(cuda, tmp_path):
 
     from torch.profiler import ProfilerActivity, profile
 
-    sim = smoke.bench_scene(cuda, 32)
-    sim.advance(smoke.DT)
+    sim = bench_scene(cuda, 32)
+    sim.advance(DT)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        d = sim.advance(smoke.DT)
+        d = sim.advance(DT)
         torch.cuda.synchronize()
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     data = json.loads((tmp_path / "trace.json").read_text())
@@ -691,7 +683,7 @@ def test_v_cycle_equals_the_plain_recursion(cuda, dtype, backend, stored):
         hier = mg.build_hierarchy(diag, links, cfg)
         assert [op[0].dtype for op in hier.ops] == [stored] * len(shapes)
         got = mg.v_cycle(hier, b, 1, 1, cfg.mg_omega, cfg.mg_coarse_scale)
-        assert torch.equal(got, smoke._v_cycle_plain(
+        assert torch.equal(got, v_cycle_plain(
             hier, b, cfg.mg_omega, cfg.mg_coarse_scale))
 
 
@@ -708,7 +700,7 @@ def test_sharded_pallas_step_on_the_card_matches_the_cpu(cuda, n_slabs):
     from flipviscosity3d_torch.parallel import shard_step as sh
     from flipviscosity3d_torch.parallel.collectives import LocalGroup
 
-    sim = smoke.bench_scene("cpu", 64)
+    sim = bench_scene("cpu", 64)
     cfg, arrays = sim.cfg, state_to_numpy(sim.state)
     out = {}
     for dev in ("cpu", cuda):
@@ -716,9 +708,9 @@ def test_sharded_pallas_step_on_the_card_matches_the_cpu(cuda, n_slabs):
         spec = sh.make_spec(cfg, n_slabs, n_particles=state.pos.shape[0])
         group = LocalGroup(n_slabs, dev)
         ss = sh.shard_simstate(state, cfg, spec, group)
-        smoke.reset_launch_counts()
-        ss, d = sh.advance_sharded(ss, smoke.DT, cfg, spec, group)
-        out[torch.device(dev).type] = (ss, d, smoke.launch_counts())
+        _build.reset_launch_counts()
+        ss, d = sh.advance_sharded(ss, DT, cfg, spec, group)
+        out[torch.device(dev).type] = (ss, d, _build.launch_counts())
     (c_ss, c_d, _), (g_ss, g_d, launches) = out["cpu"], out["cuda"]
     assert g_d.substeps == c_d.substeps
     assert g_d.bucket_overflow == c_d.bucket_overflow
@@ -790,7 +782,7 @@ def test_stream_segment_sums_repeat_bit_for_bit(cuda):
 
     gen = torch.Generator(device=cuda)
     gen.manual_seed(11)
-    res, n, dead = 128, smoke.BENCH_PARTICLES, 512
+    res, n, dead = 128, BENCH_PARTICLES, 512
     shape = (res,) * 3
     n_cells = res ** 3
     lo = torch.tensor([0.02, 0.02, 0.02], device=cuda)

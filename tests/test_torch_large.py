@@ -29,6 +29,7 @@ from flipviscosity3d_torch import smoke
 from flipviscosity3d_torch.core import step as tstep
 from flipviscosity3d_torch.core.state import state_from_numpy, state_to_numpy
 from flipviscosity3d_torch.ops import pallas_particles as tpp
+from flipviscosity3d_torch.scripts.bench import bench_scene
 from test_torch_particles import DX, FACES, SHAPE, _particles
 from test_torch_step import (  # noqa: F401  (scene is a fixture)
     DT,
@@ -306,7 +307,7 @@ def _resting_pool_frames(res, frames, particle_engine="pallas",
     0.01 s in both packages on `particle_engine` at `bucket_capacity`,
     under the default engine variants -> (the port's diagnostics per frame,
     the JAX package's)."""
-    sim = smoke.bench_scene("cpu", res, particle_engine=particle_engine)
+    sim = bench_scene("cpu", res, particle_engine=particle_engine)
     sim.cfg = dataclasses.replace(sim.cfg, bucket_capacity=bucket_capacity)
     jcfg = JaxConfig(isize=res, jsize=res, ksize=res, dx=1.0 / res,
                      bucket_capacity=bucket_capacity,

@@ -22,6 +22,7 @@ from flipviscosity3d_tpu.solvers import multigrid as jmg
 from flipviscosity3d_torch import smoke
 from flipviscosity3d_torch.config import SimConfig
 from flipviscosity3d_torch.ops import pallas_mg as tpm
+from flipviscosity3d_torch.scripts.bench import bench_scene
 from flipviscosity3d_torch.solvers import multigrid as tmg
 
 # (3, 9, 33, 17) and (1, 17, 9, 65): odd level-like extents, ragged against
@@ -265,7 +266,7 @@ def test_a_frame_leaves_no_hierarchy_to_the_collector():
     holds a hierarchy or a tensor: each solve's levels are freed when the
     solve ends, not when Python's collector next runs (a V-cycle closure
     that called itself once kept them)."""
-    sim = smoke.bench_scene("cpu", 16)
+    sim = bench_scene("cpu", 16)
     sim.advance(0.01)
     gc.collect()
     enabled = gc.isenabled()

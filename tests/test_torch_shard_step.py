@@ -36,6 +36,7 @@ from flipviscosity3d_torch.parallel import slab_mg
 from flipviscosity3d_torch.parallel.collectives import LocalGroup
 from flipviscosity3d_torch.parallel.sharding import make_mesh, make_slab_mesh
 from flipviscosity3d_torch.scripts import shard_collectives
+from flipviscosity3d_torch.scripts.bench import bench_scene
 from flipviscosity3d_tpu.config import SimConfig as JaxConfig
 from flipviscosity3d_tpu.ops import pallas_particles as jpp
 from flipviscosity3d_tpu.parallel import shard_step as jsh
@@ -312,7 +313,6 @@ import json, sys
 import numpy as np, torch
 import torch.distributed as dist
 sys.path.insert(0, {root!r})
-from flipviscosity3d_torch import smoke
 from flipviscosity3d_torch.config import SimConfig
 from flipviscosity3d_torch.core.state import state_from_numpy
 from flipviscosity3d_torch.parallel import shard_step as sh
@@ -432,7 +432,7 @@ def test_slab_kernel_checks_run_on_the_cpu():
     _slab_checks) at 32^3 on the CPU's plain versions: one slab's local
     grid of B + 2H rows and its key-sorted stream with dead rows, every
     check ok, the alive rows all covered."""
-    sim = smoke.bench_scene("cpu", N)
+    sim = bench_scene("cpu", N)
     gen = torch.Generator().manual_seed(0)
     checks = smoke._slab_checks(sim.state, sim.cfg, gen, 1)
     assert sorted(checks) == ["gather_mac", "gather_mac_one_grid",

@@ -16,9 +16,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from flipviscosity3d_torch import smoke
 from flipviscosity3d_torch.core import step as tstep
 from flipviscosity3d_torch.core.state import StepDiagnostics
+from flipviscosity3d_torch.scripts.bench import bench_scene
 from flipviscosity3d_torch.utils import trace
 
 METRICS = Path(__file__).resolve().parent.parent / "benchmark" / "metrics"
@@ -54,7 +54,7 @@ def scene(tmp_path_factory):
     profiler ranges the untraced frame opened)}, each run a (state,
     StepDiagnostics) pair."""
     torch.set_num_threads(1)
-    sim = smoke.bench_scene("cpu", 16)
+    sim = bench_scene("cpu", 16)
     state, runs = sim.state, {}
     tmp = tmp_path_factory.mktemp("tracing")
 
@@ -272,30 +272,6 @@ def test_operator_reader_is_none_without_its_span():
         for d in (a, b)]
     assert read(_run(*bare)) is None
     assert read(_run(a, bare[1])) == pytest.approx(12.0 / 3, rel=1e-12)
-
-
-def test_device_busy_counts_overlapping_streams_once():
-    """The exporter's busy time is the union of the device operations'
-    intervals; host events and events without a duration do not count."""
-    events = [
-        {"cat": "kernel", "ts": 0.0, "dur": 10.0},
-        {"cat": "kernel", "ts": 5.0, "dur": 10.0},       # overlaps: +5
-        {"cat": "gpu_memcpy", "ts": 14.0, "dur": 1.0},   # inside
-        {"cat": "gpu_memset", "ts": 20.0, "dur": 2.0},
-        {"cat": "Kernel", "ts": 30.0, "dur": 1.0},
-        {"cat": "cpu_op", "ts": 40.0, "dur": 100.0},
-        {"cat": "kernel", "ts": 50.0},
-    ]
-    assert trace.device_busy_us(events) == 15.0 + 2.0 + 1.0
-    assert trace.device_busy_us([]) == 0.0
-
-
-def test_sum_stages_adds_frames_by_name():
-    a = StepDiagnostics(stages={"g2p": _stage(1.0), "pushback": _stage(2.0)})
-    b = StepDiagnostics(stages={"g2p": _stage(3.0)})
-    assert trace.sum_stages([a, b, StepDiagnostics()]) == {
-        "g2p": {"calls": 2, "host_ms": 8.0, "stream_ms": 4.0},
-        "pushback": {"calls": 1, "host_ms": 4.0, "stream_ms": 2.0}}
 
 
 def test_viscosity_solves_count_the_viscous_substeps(scene):
