@@ -9,8 +9,8 @@
 2. Builds the CUDA kernels from flipviscosity3d_torch/csrc (one nvcc per
    source, all started together, sm_90a) and prints the build time and
    ptxas' register / spill report.
-3. Holds each of the sixteen kernels against its plain PyTorch version
-   on the card, in eighteen records (K2's one-grid launches, pass B's, have
+3. Holds each of the seventeen kernels against its plain PyTorch version
+   on the card, in nineteen records (K2's one-grid launches, pass B's, have
    their own: gather_mac_one_grid; K14 has one per wrapper), at the bench
    scene's shapes (128^3 grid, ~4.1M particles; K1 at pallas_split_terms 3
    (exact products), 1 and 2 (the JAX package's bf16 splits), K2
@@ -33,7 +33,13 @@
    operator at the grid's face shapes, with and without its diagonal; K14
    compute_volume_grids and build_viscosity_system torch.equal to their
    plain versions on the bench pool's liquid, each timed back to back and
-   with L2 flushed beside its bound), and
+   with L2 flushed beside its bound; K15 liquid_sdf_from_table
+   torch.equal to table_fields and liquid_sdf_from_particles on the table
+   K1 writes for the scene, with and without finalize, timed back to back
+   and with L2 flushed beside its bound (each cell's occupied slots and
+   its first empty one, the solid phi and phi, once) and the bound of the
+   whole table read once (table_bound_ms); K15
+   once more on the slab's K5 table), and
    times the kernel, the plain version and, where one exists, the one
    PyTorch call that computes the same function (for K7 one advanced
    index of the image, for K2 grid_sample per component, with its
@@ -87,7 +93,7 @@
      particles), readiness256 (256^3, 500,000 particles) and readiness512
      (RES 512, ISIZE 256 on 4 slab ranks: config 5's exact slab shape);
      fails if a module raised or is not ok, if a kernel the module must
-     launch (K1, K2, its one-grid form, K5, K6 in the engine probe; the
+     launch (K1, K15, K2, its one-grid form, K5, K6 in the engine probe; the
      folded K1, K2, its one-grid form, K3 and K4 in readiness256; K3 and
      K4 in the V-cycle and solver modules and profile_substep's full
      advance) never launched, or if a readiness module lost a particle or
@@ -133,8 +139,9 @@
      same state (equal substeps, iterations within 1 per solve, sorted
      positions and the owned rows of u within 5e-4); every frame must keep
      its residuals under their tolerances, lose no particle to migration,
-     and launch K5 scatter_p2g_table_stale, K2 gather_mac and
-     gather_mac_one_grid once per slab and substep and no other kernel
+     and launch K5 scatter_p2g_table_stale, K15 liquid_sdf_from_table, K2
+     gather_mac and gather_mac_one_grid once per slab and substep and no
+     other kernel
      (the V-cycle's gathered tail would run K3 / K4, but at these grids it
      is a single level, solved by its dense inverse);
    - "sharded_stream": the same on engine "stream", 1 frame, which must
@@ -152,7 +159,7 @@
      and 3 frames of dt = 0.01; at this size the scatter folds its sums
      and the face combine runs in slabs, so the path fails unless the
      folded K1 ran and the unfolded K1 did not. On its final state step 3
-     is repeated at the 256^3 shapes: all eighteen kernel records against
+     is repeated at the 256^3 shapes: all nineteen kernel records against
      their plain versions (257^3 levels, ~35.5M particles, the slab checks
      on a local grid of 80 rows; the plain scatters
      add their values in 16 runs of particles, to fit the card; K7 on the

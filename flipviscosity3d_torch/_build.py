@@ -199,6 +199,20 @@ def require(t, name: str, dtype, shape=None, device=None,
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def plane_chunk(shape, tile_j: int, tile_k: int, sms: int,
+                blocks_per_sm: int, waves: int, min_chunk: int) -> int:
+    """The planes each block of a kernel that marches its tile_j x tile_k
+    columns along i goes through on a grid of `shape` (I, J, K), on a card
+    of `sms` SMs that hold blocks_per_sm of its blocks at once: as many as
+    still give `waves` waves of blocks, so that the last, partly filled
+    wave costs little, and at least min_chunk (each block also reads the
+    planes around its chunk)."""
+    ni, nj, nk = shape
+    tiles = -(-nj // tile_j) * -(-nk // tile_k)
+    chunks = -(-(waves * blocks_per_sm * sms) // tiles)
+    return max(min_chunk, -(-ni // chunks))
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

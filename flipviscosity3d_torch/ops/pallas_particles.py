@@ -1,6 +1,7 @@
 """The particle engine of the port: tile-major keys, the pass-A sort, the
 visit plans' coverage, the P2G scatter (K1, and K5 over an unsorted stream),
-the trilinear MAC gather (K2) and the node-SDF corner gather (K6).
+the liquid SDF over its slot table (K15), the trilinear MAC gather (K2) and
+the node-SDF corner gather (K6).
 
 Counterpart of flipviscosity3d_tpu/ops/pallas_particles.py. That module
 builds one-hot MXU matmuls over visit plans; the port keeps only what they
@@ -14,6 +15,8 @@ compute:
   weight*velocity sums over the 2x3x3 face window of each MAC component
   (lane comp*18 + oidx, momentum at +54), and the liquid-SDF slot table
   (slot r < cap holds (px, py, pz, 1) of the particle of rank r);
+- `liquid_sdf_from_table` (K15) reads that table back into the
+  cell-centred liquid SDF, the min over the 3x3x3 cells around each cell;
 - `gather_mac` samples n_grids in {1, 2} MAC velocity grids trilinearly at
   each particle, restricted to the home cell's 2x3x3 window.
 
@@ -58,6 +61,7 @@ import torch
 from .. import _build
 from .buckets import run_ranks
 from .grids import shifted_read
+from .particle_grid import liquid_sdf_from_particles
 from .stream_transfers import NODE_CORNERS
 
 TILE = (8, 8, 8)
@@ -582,6 +586,55 @@ def table_fields(table, cap):
     occ = t[..., 3] > 0.5
     far = torch.full_like(t[..., 0], FAR)
     return tuple(torch.where(occ, t[..., f], far) for f in range(3))
+
+
+# ---------------------------------------------------------------------------
+# K15: the liquid SDF over the slot table
+# ---------------------------------------------------------------------------
+
+# csrc/liquid_sdf.cu's block: 16 (j) x 32 (k) source columns, one thread
+# each, around 14 x 30 target columns; two blocks an SM (64 registers a
+# thread). Its chunks of planes (_build.plane_chunk): four waves of blocks
+# where the planes allow, and at least 8 planes, since a block also reads
+# the source plane below its chunk and the one above.
+_SDF_TILE = (14, 30)
+_SDF_BLOCKS_PER_SM = 2
+_SDF_WAVES = 4
+_SDF_MIN_CHUNK = 8
+_SDF_ARGS = (_P,) * 3 + (_I,) * 4 + (_F,) * 5 + (_I, _P)
+
+
+@_build.counted
+def liquid_sdf_from_table(table, cap, grid_shape, dx, radius,
+                          solid_center_phi, finalize=True):
+    """K15: the cell-centred liquid SDF of the (I,J,K,cap,4) slot table
+    that K1 and K5 write (occupied slots first in each cell), and with
+    `finalize` -dx/2 in solid cells near the surface: what
+    liquid_sdf_from_particles(table_fields(table, cap), ...) computes.
+    Takes that plain composition for CPU tensors and launches the CUDA
+    kernel (csrc/liquid_sdf.cu, torch.equal to it) for CUDA tensors; there
+    is no fallback between the two."""
+    shape = tuple(grid_shape)
+    _build.require(table, "table", torch.float32, shape + (cap, 4),
+                   device=table.device)
+    _build.require(solid_center_phi, "solid_center_phi", torch.float32,
+                   shape, device=table.device, ndim=3)
+    if cap < 1:
+        raise ValueError(
+            f"liquid_sdf_from_table: cap must be >= 1, got {cap}")
+    if _build.on_cpu(table, "liquid_sdf_from_table"):
+        return liquid_sdf_from_particles(table_fields(table, cap), shape, dx,
+                                         radius, solid_center_phi, finalize)
+    phi = torch.empty(shape, dtype=torch.float32, device=table.device)
+    _build.launch(
+        "flip3d_liquid_sdf", _SDF_ARGS, table.data_ptr(),
+        solid_center_phi.data_ptr() if finalize else None, phi.data_ptr(),
+        *shape, cap, _f32(dx), _f32(3.0 * dx), _f32(radius), _f32(0.5 * dx),
+        _f32(-0.5 * dx),
+        _build.plane_chunk(shape, *_SDF_TILE, _build.sm_count(table),
+                           _SDF_BLOCKS_PER_SM, _SDF_WAVES, _SDF_MIN_CHUNK))
+    _build.count(liquid_sdf_from_table)
+    return phi
 
 
 def _combine_cells(lanes, face_shapes):

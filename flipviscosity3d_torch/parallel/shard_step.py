@@ -58,7 +58,6 @@ from ..ops.extrapolate import extrapolate_grid
 from ..ops.grids import (face_borders_fluid_v, face_borders_fluid_w,
                          shifted_read)
 from ..ops.levelset import fraction_inside
-from ..ops.particle_grid import liquid_sdf_from_particles
 from ..ops.stream import stream_sort_keys
 from ..solvers import pressure as psolver
 from ..solvers import viscosity as vsolver
@@ -317,9 +316,9 @@ def _pass_a_pallas(px, py, pz, vx, vy, vz, alive, cfg, local_shape,
     sums, table, counts = pp.scatter_p2g_table_stale(
         torch.stack(fields[0:3], dim=1), torch.stack(fields[3:6], dim=1),
         key, plan, local_shape, dx, cap, terms=cfg.pallas_split_terms)
-    liquid_phi = liquid_sdf_from_particles(
-        pp.table_fields(table, cap), local_shape, dx, cfg.particle_radius,
-        solid_center, finalize=False)
+    liquid_phi = pp.liquid_sdf_from_table(
+        table, cap, local_shape, dx, cfg.particle_radius, solid_center,
+        finalize=False)
     p2g_sums = pp.p2g_combine(sums, local_shape, face_shapes)
     uncovered = ((~plan.covered) & salive).sum()
     return (fields, salive, key, plan, liquid_phi, p2g_sums,

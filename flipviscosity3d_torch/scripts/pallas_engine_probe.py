@@ -10,7 +10,9 @@ distribution (n uniform positions in the bottom quarter of the box, N(0,
 passes:
 
 - pass A: the tile-key sort, K1 scatter_p2g_table, the slot table's
-  fields, the liquid SDF, the face combine, K2 gather_mac of two grids;
+  fields (the plain sweep's relayout), the liquid SDF (K15 over the
+  table, as the step runs it), the face combine, K2 gather_mac of two
+  grids;
 - pass B: a re-sort by midpoint key, K2 of one grid (gather_mac_one_grid);
 - B': the midpoint plan over pass A's order and K2 of one grid, with the
   plan's coverage and visits;
@@ -39,7 +41,6 @@ from ..config import SimConfig
 from ..ops import pallas_particles as pp
 from ..ops import stream_transfers as st
 from ..ops.buckets import cell_of_position
-from ..ops.particle_grid import liquid_sdf_from_particles
 from . import main, resolve_device, stage
 
 CAP = 16
@@ -62,9 +63,10 @@ PORT = {
     "tiled_sort+plan (pass A)": "tiled_sort: sort and in-cell ranks; K1 "
                                 "walks the sorted stream, no visit plan",
     "table_fields (64-lane relayout)": "table_fields: slot-major (x, y, z)"
-                                       " views of the slot table",
-    "liquid_sdf_from_fields": "particle_grid.liquid_sdf_from_particles "
-                              "over table_fields, as the step",
+                                       " views of the slot table (the plain"
+                                       " sweep's; K15 reads the table)",
+    "liquid_sdf_from_fields": "K15 liquid_sdf_from_table over the slot "
+                              "table, as the step",
     "build+tile cols (A, 108)": NO_COLUMNS,
     "sort_by_key+plan (pass B)": "sort_by_key of the nine pass-B fields, "
                                  "no visit plan",
@@ -144,10 +146,10 @@ def run(device="cuda", n: int = 4_100_000, res: int = 128,
     row(ROWS[1], sort_idx)
     sums, table = row(ROWS[2], lambda: pp.scatter_p2g_table(
         stream.pos, stream.vel, stream.key, stream.rank, shape, dx, CAP))
-    fields = row(ROWS[3], lambda: pp.table_fields(table, CAP))
+    row(ROWS[3], lambda: pp.table_fields(table, CAP))
     solid_phi = torch.ones(shape, device=dev)
-    row(ROWS[4], lambda: liquid_sdf_from_particles(
-        fields, shape, dx, 0.5 * dx, solid_phi))
+    row(ROWS[4], lambda: pp.liquid_sdf_from_table(
+        table, CAP, shape, dx, 0.5 * dx, solid_phi))
     row(ROWS[5], lambda: pp.p2g_combine(sums, shape, fsh))
     grids = [torch.randn(fsh[i // 2], generator=gen, device=dev)
              for i in range(6)]

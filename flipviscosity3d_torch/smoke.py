@@ -79,6 +79,8 @@ from .io import trianglemesh as tm
 from .io.trianglemesh import box_mesh
 from .ops import pallas_mg as pm
 from .ops import pallas_particles as pp
+from .ops.buckets import cell_coords
+from .ops.particle_grid import liquid_sdf_from_particles
 from .scripts import FLUSH_BYTES, PROBE_RUN, SPLIT_TERMS, STALE_LIFT
 from .scripts import bound, compare, device_ms, equal, max_abs, nbytes
 from .scripts import gather_bound, scatter_bound, stale_scatter_bound
@@ -151,6 +153,10 @@ KERNELS = (
      "flipviscosity3d_torch/csrc/visc_build.cu",
      "none: the JAX package's viscosity system assembly is XLA"
      " (flipviscosity3d_tpu/solvers/viscosity.py::build_viscosity_system)"),
+    (pp.liquid_sdf_from_table, "flipviscosity3d_torch/csrc/liquid_sdf.cu",
+     "none: the JAX package's liquid SDF over its slot table is XLA"
+     " (flipviscosity3d_tpu/ops/pallas_particles.py::"
+     "liquid_sdf_from_fields)"),
 )
 # the kernels of the hardware-check path (run_hw_check)
 HW_CHECK_KERNELS = ("gather_rows", "detile", "scatter_revisit",
@@ -190,8 +196,8 @@ ENGINE_PATHS = (
 # scene, the kernels a sharded "pallas" substep launches once per slab, and
 # the bar of the JAX package's tests/test_shard_step.py:207-234.
 SHARDED_SLABS = 4
-SHARDED_KERNELS = ("scatter_p2g_table_stale", "gather_mac",
-                   "gather_mac_one_grid")
+SHARDED_KERNELS = ("scatter_p2g_table_stale", "liquid_sdf_from_table",
+                   "gather_mac", "gather_mac_one_grid")
 SHARDED_ATOL = 5e-4
 
 
@@ -209,13 +215,14 @@ def path_kernels(cfg: SimConfig) -> list:
     """The kernels a substep under `cfg` launches on the card: the V-cycle's
     under a multigrid preconditioner, the viscosity operator (the scenes of
     these paths are viscous: _main_path_failures fails a path that ran no
-    viscosity solve), and under the "pallas" engine its scatter and its
-    gathers of two grids (pass A) and one (pass B), and gather_rows8 under
+    viscosity solve), and under the "pallas" engine its scatter, the liquid
+    SDF over its table (K15) and its gathers of two grids (pass A) and one
+    (pass B), and gather_rows8 under
     the kernel pushback. The viscosity solve's kernels are K13 and K14's
     two wrappers (VISCOSITY_KERNELS)."""
     pallas = cfg.particle_engine == "pallas"
-    names = ([_scatter_names(cfg)[0], "gather_mac", "gather_mac_one_grid"]
-             if pallas else [])
+    names = ([_scatter_names(cfg)[0], "liquid_sdf_from_table", "gather_mac",
+              "gather_mac_one_grid"] if pallas else [])
     if "multigrid" in (cfg.pressure_preconditioner,
                        cfg.viscosity_preconditioner):
         names += ["mg_down", "mg_up"]
@@ -477,7 +484,8 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     (_scatter_checks); K7-K10 (_column_records); K11 and K12 on the
     prototype's own input (_proto_records); K13 on a random premasked
     operator (_viscosity_operator_record); K14's two wrappers on the bench
-    pool's liquid (_visc_build_records); K5, K2 and
+    pool's liquid (_visc_build_records); K15 torch.equal on the table K1
+    writes for the scene (_liquid_sdf_record); K5, K15, K2 and
     gather_mac_one_grid once more at the sharded paths' inputs, one
     slab's local grid and key-sorted stream with its dead rows, their
     checks added to those records (_slab_checks). Returns
@@ -523,6 +531,12 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
     records["scatter_p2g_table_folded"] = (
         fchecks, _times(lambda: k1(True), lambda: k1_plain(True)),
         scatter_bound(args[:4], n_cells, cap, pp.SUML))
+
+    # K15 on the table K1 writes for the scene
+    _, table = pp.scatter_p2g_table(*args)
+    records["liquid_sdf_from_table"] = _liquid_sdf_record(
+        table, cfg, state.solid.center_phi)
+    del table
 
     # K2: G2P gather, pass A (2 grids) and pass B (1 grid at midpoints)
     faces = (cfg.u_shape, cfg.v_shape, cfg.w_shape)
@@ -691,17 +705,19 @@ def check_kernels(state, cfg: SimConfig, seed: int = 0, log=print,
 
 
 def _slab_checks(state, cfg: SimConfig, gen, ref_slabs: int) -> dict:
-    """K5, K2 and gather_mac_one_grid at the inputs the sharded "pallas"
-    paths give them: an inner slab (rank 1 of SHARDED_SLABS) of `state` as
-    shard_simstate cuts it, its local grid (B + 2H, J, K), its particles in
-    slab-local x with the dead rows of its capacity, sorted and planned by
-    shard_step.slab_stream (dead rows keyed _IMAX, last, uncovered). At
-    each of SPLIT_TERMS: K5 against its plain version (sums within rtol
-    1e-5 and atol 1e-6 * max|sums|, table and counts exact); K2 with two
-    random grids of the slab's face shapes (u's cropped row padded back as
-    zeros, as the slab substep pads it) and with one at midpoints (the
-    sorted positions moved by normal steps of 3 cells, dead rows keyed
-    _IMAX) torch.equal to gather_mac_ref -> {kernel name: checks}."""
+    """K5, K15, K2 and gather_mac_one_grid at the inputs the sharded
+    "pallas" paths give them: an inner slab (rank 1 of SHARDED_SLABS) of
+    `state` as shard_simstate cuts it, its local grid (B + 2H, J, K), its
+    particles in slab-local x with the dead rows of its capacity, sorted
+    and planned by shard_step.slab_stream (dead rows keyed _IMAX, last,
+    uncovered). At each of SPLIT_TERMS: K5 against its plain version
+    (sums within rtol 1e-5 and atol 1e-6 * max|sums|, table and counts
+    exact), and at the exact terms K15 on K5's table (sdf_checks); K2
+    with two random grids of the slab's face shapes (u's cropped row
+    padded back as zeros, as the slab substep pads it) and with one at
+    midpoints (the sorted positions moved by normal steps of 3 cells, dead
+    rows keyed _IMAX) torch.equal to gather_mac_ref -> {kernel name:
+    checks}."""
     from .parallel import shard_step as sh
 
     rank, dx, cap = 1, cfg.dx, cfg.sdf_cap
@@ -709,6 +725,7 @@ def _slab_checks(state, cfg: SimConfig, gen, ref_slabs: int) -> dict:
                         n_particles=int(state.pos.shape[0]))
     ss = sh.shard_simstate(state, cfg, spec)
     pos, vel, alive = (t[rank].clone() for t in (ss.pos, ss.vel, ss.alive))
+    solid_center = ss.solid_center[rank].clone()
     faces = tuple(tuple(t.shape[1:]) for t in (ss.u, ss.v, ss.w))
     del ss
     local = faces[0]
@@ -735,6 +752,9 @@ def _slab_checks(state, cfg: SimConfig, gen, ref_slabs: int) -> dict:
                {"check": f"{label}table and counts exact",
                 "ok": all(bool(torch.equal(a, b))
                           for a, b in zip(got[1:], want[1:]))}]
+        if terms == 3:
+            k15 = sdf_checks(tag, got[1], cap, local, dx, cfg.particle_radius,
+                             solid_center)
         del got, want
     grids = []
     for _ in range(2):
@@ -766,7 +786,106 @@ def _slab_checks(state, cfg: SimConfig, gen, ref_slabs: int) -> dict:
                               dx, local, terms)))
     k5_name = "scatter_p2g_table_stale" + (
         "_folded" if pp.large_grid(local) else "")
-    return {k5_name: k5, "gather_mac": k2, "gather_mac_one_grid": k2b}
+    return {k5_name: k5, "gather_mac": k2, "gather_mac_one_grid": k2b,
+            "liquid_sdf_from_table": k15}
+
+
+# K15's cases for the card and the CPU tests: (grid shape, cap, fill of
+# sdf_table); "slab" is the local grid of the inner slab of a 16^3 grid in
+# 2 slabs (B + 2H = 20 rows)
+SDF_CASES = {
+    "cube": ((16, 16, 16), 16, "mixed"),
+    "odd": ((13, 18, 11), 24, "mixed"),
+    "full": ((8, 8, 8), 16, "full"),
+    "empty": ((8, 8, 8), 16, "empty"),
+    "slab": ((20, 16, 16), 12, "mixed"),
+}
+# float32 operations of K15 per particle: 3 for u, 6 for the shifted t,
+# 9 squares, 9 + 27 adds for the 27 d^2 and 27 mins
+_SDF_FLOPS_PER_PARTICLE = 81
+
+
+def sdf_table(shape, cap, fill, gen, device) -> torch.Tensor:
+    """A slot table of `shape` cells as K1 and K5 write one, for K15's
+    checks, at dx = 1 / max(shape): each cell's first `count` slots hold
+    (px, py, pz, 1) of points drawn uniformly in the cell, the others
+    zeros. `fill` "mixed" draws count from [0, cap] and then empties half
+    the cells and fills a tenth to cap, and empties the top quarter of the
+    grid in j (so that some cells have no particle around them); "full"
+    sets count to cap, "empty" to 0."""
+    dx = 1.0 / max(shape)
+    n_cells = math.prod(shape)
+    count = torch.randint(0, cap + 1, (n_cells,), generator=gen,
+                          device=device)
+    draw = torch.rand(n_cells, generator=gen, device=device)
+    at = cell_coords(shape, device).t().to(torch.float32)
+    if fill == "mixed":
+        count[draw < 0.5] = 0
+        count[draw > 0.9] = cap
+        count[at[:, 1] >= 0.75 * shape[1]] = 0
+    else:
+        count.fill_(cap if fill == "full" else 0)
+    pos = (at[:, None, :] + torch.rand((n_cells, cap, 3), generator=gen,
+                                       device=device)) * dx
+    slots = torch.cat([pos, torch.ones_like(pos[..., :1])], dim=2)
+    occupied = torch.arange(cap, device=device) < count[:, None]
+    return (slots * occupied[..., None]).reshape(*shape, cap, 4)
+
+
+def sdf_checks(tag, table, cap, shape, dx, radius, solid_center) -> list:
+    """K15 on `table` torch.equal to the plain composition (table_fields,
+    liquid_sdf_from_particles), with and without finalize."""
+    fields = pp.table_fields(table, cap)
+    occupied = int(table[..., 3].sum(dtype=torch.float64))
+    checks = []
+    for finalize in (True, False):
+        checks.append(equal(
+            f"{tag}{'x'.join(map(str, shape))}, cap {cap}, {occupied} "
+            f"particles, finalize {finalize}",
+            pp.liquid_sdf_from_table(table, cap, shape, dx, radius,
+                                     solid_center, finalize),
+            liquid_sdf_from_particles(fields, shape, dx, radius,
+                                      solid_center, finalize)))
+    return checks
+
+
+def _liquid_sdf_record(table, cfg: SimConfig, solid_center) -> tuple:
+    """K15's record for check_kernels on `table` (K1's for the scene):
+    sdf_checks; the kernel timed back to back and cold, the plain version,
+    and the bound of what the kernel has to move: each cell's occupied
+    slots and its first empty one (min(count + 1, cap) slots), the solid
+    phi and phi, once; beside it `table_bound_ms`, the bound of the whole
+    table read once in their place."""
+    dev = table.device
+    on_card = dev.type == "cuda"
+    shape, cap, dx = cfg.grid_shape, cfg.sdf_cap, cfg.dx
+    args = (table, cap, shape, dx, cfg.particle_radius, solid_center)
+    checks = sdf_checks("", *args)
+    count = table[..., 3].sum(dim=-1, dtype=torch.float64)
+    particles = float(count.sum())
+    prefix = 16.0 * float(torch.clamp(count + 1, max=cap).sum())
+    del count
+    phi_bytes = 4 * cfg.n_cells
+    bnd = bound(prefix + nbytes(solid_center) + phi_bytes,
+                _SDF_FLOPS_PER_PARTICLE * particles)
+    table_bnd = bound(nbytes(table, solid_center) + phi_bytes,
+                      _SDF_FLOPS_PER_PARTICLE * particles)
+
+    def kern():
+        return pp.liquid_sdf_from_table(*args)
+
+    def plain():
+        return liquid_sdf_from_particles(pp.table_fields(table, cap), shape,
+                                         dx, cfg.particle_radius,
+                                         solid_center)
+
+    flush_buf = torch.empty(FLUSH_BYTES // 4 if on_card else 1, device=dev)
+    times = _level_times(kern, plain, flush_buf.zero_, on_card, bnd)
+    del flush_buf
+    return (checks, {**{k: times[k] for k in ("ms", "ms_cold", "plain_ms",
+                                              "cold_over_bound")},
+                     "library_ms": None,
+                     "table_bound_ms": table_bnd["bound_ms"]}, bnd)
 
 
 def _vcycle_records(cfg: SimConfig, dev, gen) -> dict:
@@ -1401,8 +1520,8 @@ _VCYCLE = ("mg_down", "mg_up")
 SCRIPT_RUNS = (
     (profile_substep, dict(res=128), _VCYCLE),
     (pallas_engine_probe, dict(n=4_100_000, res=128),
-     ("scatter_p2g_table", "gather_mac", "gather_mac_one_grid",
-      "scatter_p2g_table_stale", "gather_rows8")),
+     ("scatter_p2g_table", "liquid_sdf_from_table", "gather_mac",
+      "gather_mac_one_grid", "scatter_p2g_table_stale", "gather_rows8")),
     (mg_pallas_bench, dict(res=128, k=50), _VCYCLE),
     (mg_profile, dict(res=128, k=50), _VCYCLE),
     (solver_microbench, dict(res=64), _VCYCLE),
@@ -1626,12 +1745,13 @@ def run_cli64(device, workdir, resolution=None) -> dict:
 
 def _sharded_kernels(cfg: SimConfig, spec) -> tuple:
     """The kernels a sharded substep under `cfg` launches once per slab:
-    under "pallas" K5 (folded where a slab holds >= 2^24 cells), K2 of two
-    grids and of one; none under "stream". The slab V-cycle's levels are
-    halo'd stencils in plain torch; its gathered tail would run K3 / K4,
-    but at the power-of-two grids of the paths it is a single level (8^3
-    pressure, 5^3 viscosity blocks; slab_mg's docstring), solved by its
-    dense inverse, so K3 / K4 are not among them."""
+    under "pallas" K5 (folded where a slab holds >= 2^24 cells), K15 on
+    its table, K2 of two grids and of one; none under "stream". The slab
+    V-cycle's levels are halo'd stencils in plain torch; its gathered tail
+    would run K3 / K4, but at the power-of-two grids of the paths it is a
+    single level (8^3 pressure, 5^3 viscosity blocks; slab_mg's
+    docstring), solved by its dense inverse, so K3 / K4 are not among
+    them."""
     if cfg.particle_engine != "pallas":
         return ()
     local = (spec.B + 2 * spec.H, cfg.jsize, cfg.ksize)

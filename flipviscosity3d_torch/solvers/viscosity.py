@@ -314,10 +314,8 @@ def plane_chunk(shape, sms: int) -> int:
     """The planes each block of K13 marches through over the union domain
     `shape` (I, J, K) on a card of `sms` SMs: as many as still give _WAVES
     waves of blocks, and at least _MIN_CHUNK."""
-    ni, nj, nk = shape
-    tiles = -(-nj // _TILE_J) * -(-nk // _TILE_K)
-    chunks = -(-(_WAVES * _BLOCKS_PER_SM * sms) // tiles)
-    return max(_MIN_CHUNK, -(-ni // chunks))
+    return _build.plane_chunk(shape, _TILE_J, _TILE_K, sms, _BLOCKS_PER_SM,
+                              _WAVES, _MIN_CHUNK)
 
 
 _ARGS = (ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),

@@ -57,7 +57,7 @@ def test_kernels_match_plain_versions(cuda):
         "gather_rows", "detile", "scatter_revisit", "gather_revisit",
         "tile_scatter", "tile_gather", "gather_mac_one_grid",
         "viscosity_operator", "compute_volume_grids",
-        "build_viscosity_system"]
+        "build_viscosity_system", "liquid_sdf_from_table"]
     for r in records:
         assert r["ok"], r
         assert r["bound_by"] in ("bytes", "operations")
@@ -183,7 +183,7 @@ def test_gather_mac_orders_match_plain_version(cuda):
 @pytest.mark.gpu
 def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
     """The three main paths at 32^3 launch the six unfolded kernels, K2
-    with one grid (pass B), K13 and K14's two wrappers; the CLI's paths
+    with one grid (pass B), K13, K14's two wrappers and K15; the CLI's paths
     with the large-grid threshold lowered to 32^3 launch the two folded
     ones; the hardware-check path launches the four kernels of the column
     path."""
@@ -194,7 +194,8 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
         assert result["failures"] == []
         launched |= {k for k, c in result["launches"].items() if c > 0}
     assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:6]} | {
-        "gather_mac_one_grid", *smoke.VISCOSITY_KERNELS}
+        "gather_mac_one_grid", "liquid_sdf_from_table",
+        *smoke.VISCOSITY_KERNELS}
     monkeypatch.setattr(pp, "FOLD_CELLS", 32 ** 3)
     for name, dt, lift, overrides in smoke.MAIN_PATHS[:2]:
         result = smoke.run_scene_path(cuda, tmp_path, name, 32, 1, dt=dt,
@@ -202,7 +203,8 @@ def test_main_path_launches_every_kernel(cuda, tmp_path, monkeypatch):
         assert result["failures"] == []
         launched |= {k for k, c in result["launches"].items() if c > 0}
     assert launched == {fn.__name__ for fn, _, _ in smoke.KERNELS[:8]} | {
-        "gather_mac_one_grid", *smoke.VISCOSITY_KERNELS}
+        "gather_mac_one_grid", "liquid_sdf_from_table",
+        *smoke.VISCOSITY_KERNELS}
     monkeypatch.undo()
     result = smoke.run_hw_check(cuda, 32, 65_536, 64, 30_000,
                                 log=lambda line: None)
@@ -523,10 +525,85 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                   cfg)
     with pytest.raises(ValueError):                      # non-contiguous
         vs.compute_volume_grids(phi.transpose(0, 1), cfg)
+    # K15: a CPU solid phi, an f64 table, a table of another cap
+    table = smoke.sdf_table((8, 8, 8), 4, "mixed", gen, cuda)
+    with pytest.raises(ValueError):
+        pp.liquid_sdf_from_table(table, 4, (8, 8, 8), 1 / 8, 0.1, phi.cpu())
+    with pytest.raises(ValueError):
+        pp.liquid_sdf_from_table(table.double(), 4, (8, 8, 8), 1 / 8, 0.1,
+                                 phi)
+    with pytest.raises(ValueError):
+        pp.liquid_sdf_from_table(table, 3, (8, 8, 8), 1 / 8, 0.1, phi)
 
 
 def _faces(i, j, k):
     return ((i + 1, j, k), (i, j + 1, k), (i, j, k + 1))
+
+
+# K15 beyond smoke's cases: grids that straddle its 14 x 30 target columns
+# and its chunks of planes, a single cell, and odd caps (the kernel reads
+# slots in pairs)
+SDF_RAGGED = {"ragged": ((33, 29, 61), 5, "mixed"),
+              "one_cell": ((1, 1, 1), 3, "full"),
+              "thin": ((2, 45, 3), 1, "mixed"),
+              "cap32": ((9, 15, 31), 32, "mixed")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(smoke.SDF_CASES) + list(SDF_RAGGED))
+def test_liquid_sdf_equals_its_plain_version(cuda, name):
+    """K15 torch.equal to the plain composition (table_fields,
+    liquid_sdf_from_particles) with finalize and without, on smoke's cases
+    and the ragged ones."""
+    shape, cap, fill = {**smoke.SDF_CASES, **SDF_RAGGED}[name]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(21)
+    table = smoke.sdf_table(shape, cap, fill, gen, cuda)
+    dx = 1.0 / max(shape)
+    solid = torch.randn(shape, generator=gen, device=cuda) * dx
+    _build.reset_launch_counts()
+    checks = smoke.sdf_checks("", table, cap, shape, dx,
+                              SimConfig.particle_radius_factor * dx, solid)
+    assert all(c["ok"] for c in checks), checks
+    assert pp.liquid_sdf_from_table.launches == 2
+
+
+@pytest.mark.gpu
+def test_liquid_sdf_on_the_tables_k1_and_k5_write(cuda):
+    """K15 torch.equal to its plain version on the tables that K1 (the
+    sorted stream) and K5 (both stale orders of smoke, the random one
+    partly covered) write for the 32^3 bench pool."""
+    sim = bench_scene(cuda, 32)
+    cfg, state = sim.cfg, sim.state
+    shape, dx, cap = cfg.grid_shape, cfg.dx, cfg.sdf_cap
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    vel = torch.randn(state.pos.shape, generator=gen, device=cuda)
+    stream = pp.tiled_sort(state.pos, vel, dx, shape)
+    tables = {"K1": pp.scatter_p2g_table(stream.pos, stream.vel, stream.key,
+                                         stream.rank, shape, dx, cap)[1]}
+    for label, moved in smoke.stale_orders(stream.pos, cfg, gen).items():
+        key = pp.key_of_position(moved, dx, shape)
+        plan = pp.plan_pass_a(key, shape, cfg.pallas_passa_budget,
+                              cfg.pallas_passa_factor)
+        tables[f"K5 {label}"] = pp.scatter_p2g_table_stale(
+            moved, vel, key, plan, shape, dx, cap)[1]
+    for label, table in tables.items():
+        checks = smoke.sdf_checks(f"{label}: ", table, cap, shape, dx,
+                                  cfg.particle_radius, state.solid.center_phi)
+        assert all(c["ok"] for c in checks), checks
+
+
+@pytest.mark.gpu
+def test_pallas_step_launches_k15_once_a_substep(cuda):
+    """A warm and a timed frame of the bench path and of the stale path
+    (K1's and K5's tables) at 32^3: K15 launches exactly once a substep."""
+    for _, dt, lift, overrides in smoke.MAIN_PATHS[:2]:
+        result = smoke.run_main_path(cuda, 32, 1, dt=dt, lift=lift,
+                                     log=lambda line: None, **overrides)
+        assert result["failures"] == []
+        substeps = sum(f["substeps"] for f in result["frames"])
+        assert result["launches"]["liquid_sdf_from_table"] == substeps
 
 
 # K13: a small cube, an odd grid, the slab shapes of a 64^3 grid in 4 slabs

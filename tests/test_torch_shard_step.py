@@ -436,10 +436,11 @@ def test_slab_kernel_checks_run_on_the_cpu():
     gen = torch.Generator().manual_seed(0)
     checks = smoke._slab_checks(sim.state, sim.cfg, gen, 1)
     assert sorted(checks) == ["gather_mac", "gather_mac_one_grid",
+                              "liquid_sdf_from_table",
                               "scatter_p2g_table_stale"]
     coverage = checks["scatter_p2g_table_stale"][0]
     assert coverage["check"].startswith("slab 1 of 4 (24x32x32, ")
     assert "dead rows" in coverage["check"]
     assert coverage["covered"] == coverage["alive"] > 0
-    assert [len(c) for c in checks.values()] == [7, 3, 3]
+    assert [len(c) for c in checks.values()] == [7, 3, 3, 2]
     assert all(c["ok"] for cs in checks.values() for c in cs)

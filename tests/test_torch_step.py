@@ -269,11 +269,11 @@ def test_main_path_runs_on_cpu():
         "gather_rows": 0, "detile": 0, "scatter_revisit": 0,
         "gather_revisit": 0, "tile_scatter": 0, "tile_gather": 0,
         "viscosity_operator": 0, "compute_volume_grids": 0,
-        "build_viscosity_system": 0}
+        "build_viscosity_system": 0, "liquid_sdf_from_table": 0}
     assert result["path_kernels"] == [
-        "scatter_p2g_table", "gather_mac", "gather_mac_one_grid", "mg_down",
-        "mg_up", "viscosity_operator", "compute_volume_grids",
-        "build_viscosity_system"]
+        "scatter_p2g_table", "liquid_sdf_from_table", "gather_mac",
+        "gather_mac_one_grid", "mg_down", "mg_up", "viscosity_operator",
+        "compute_volume_grids", "build_viscosity_system"]
     assert all(f["viscosity_iterations"] > 0 for f in result["frames"])
     # the midpoint plan's demand, per chunk: at least one visit
     assert all(f["plan_demand"] >= 1 for f in result["frames"])
@@ -293,9 +293,9 @@ def test_stale_main_path_runs_on_cpu():
     assert result["failures"] == []
     assert result["substeps"] > 2 and result["stale_substeps"] >= 1
     assert result["path_kernels"] == [
-        "scatter_p2g_table_stale", "gather_mac", "gather_mac_one_grid",
-        "mg_down", "mg_up", "viscosity_operator", "compute_volume_grids",
-        "build_viscosity_system", "gather_rows8"]
+        "scatter_p2g_table_stale", "liquid_sdf_from_table", "gather_mac",
+        "gather_mac_one_grid", "mg_down", "mg_up", "viscosity_operator",
+        "compute_volume_grids", "build_viscosity_system", "gather_rows8"]
     assert all(f["plan_demand"] >= 1 for f in result["frames"])
 
 
@@ -310,8 +310,8 @@ def test_bench_sort_main_path_runs_on_cpu():
     assert result["failures"] == []
     assert result["substeps"] >= 2 and result["stale_substeps"] == 0
     assert result["path_kernels"] == [
-        "scatter_p2g_table", "gather_mac", "gather_mac_one_grid", "mg_down",
-        "mg_up", "viscosity_operator", "compute_volume_grids",
-        "build_viscosity_system"]
+        "scatter_p2g_table", "liquid_sdf_from_table", "gather_mac",
+        "gather_mac_one_grid", "mg_down", "mg_up", "viscosity_operator",
+        "compute_volume_grids", "build_viscosity_system"]
     assert all(f["plan_demand"] == 0 and f["uncovered_pass_b"] == 0
                for f in result["frames"])
